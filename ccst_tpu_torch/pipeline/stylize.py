@@ -1,0 +1,339 @@
+"""Cross-client style transfer (CCST pipeline stage 2), Overall mode.
+
+Port of ``ccst_tpu/pipeline/stylize.py`` (reference
+style_transfer/AdaIN/CCST_OverallStyleTransfer.py): for a content domain,
+write a stylized copy of every train image under each other domain's shared
+style bank.
+
+  - :class:`StylizeEngine` (engine ``ref``): weights cast once to the compute
+    dtype on one device; encode -> fused AdaIN + alpha blend -> decode, with
+    the three kernels of ``kernels/`` on the card. ``stylize_multi`` encodes a
+    batch once and decodes it under S style banks.
+  - The transfer loop decodes each content batch once (uint8 transport,
+    normalized on the device), launches batch N+1 before it copies batch N's
+    uint8 output to the host, and encodes the images on a thread pool.
+
+Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md): the
+``packed``/``int8``/``int8-static``/``int8-fused`` engines and calibration,
+``--mode single``, ``skip_existing`` and ``output_size > 0``.
+"""
+from __future__ import annotations
+
+import concurrent.futures as cf
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ccst_tpu.config import StylizeConfig, dataset_spec
+from ccst_tpu.data.lists import parse_list, stylized_output_path, train_list_path
+from ccst_tpu.data.loader import ImageBatchLoader, save_image_u8
+from ccst_tpu_torch.kernels.adain import fused_adain
+from ccst_tpu_torch.kernels.moments import channel_moments
+from ccst_tpu_torch.models import vgg
+from ccst_tpu_torch.pipeline.style_bank import load_style_stats
+
+# what is not ported yet, and the ROADMAP.md Queue 1 item it waits for
+_WAITS = {
+    "packed": "item 4 (the packed engine)",
+    "int8": "item 8 (int8 engines)",
+    "int8-static": "item 8 (int8 engines)",
+    "int8-fused": "item 8 (int8 engines, kernel K1)",
+    "calibrate": "item 8 (int8-static calibration)",
+    "output_size": "item 4 (resize_bilinear)",
+    "single": "item 6 (single-mode transfer)",
+    "skip_existing": "item 6 (skip_existing reruns)",
+}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to ccst_tpu_torch yet: ROADMAP.md Queue 1 {_WAITS[what]}"
+    )
+
+
+class StylizeEngine:
+    """AdaIN stylization on one device; weights cast once to ``dtype``."""
+
+    def __init__(
+        self,
+        encoder_params,
+        decoder_params,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+        output_size: int = -1,
+        output_u8: bool = False,
+        engine: str = "ref",
+    ):
+        if engine != "ref":
+            if engine not in _WAITS:
+                raise ValueError(f"unknown stylize engine {engine!r}")
+            raise not_ported(engine)
+        if output_size > 0:
+            raise not_ported("output_size")
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.enc = vgg.prepare_params(encoder_params, dtype, self.device)
+        self.dec = vgg.prepare_params(decoder_params, dtype, self.device)
+        self.output_u8 = output_u8
+
+    def calibrate(self, images, style_stats, max_images: int = 8) -> None:
+        """int8-static calibration (``ccst_tpu`` ``StylizeEngine.calibrate``)."""
+        raise not_ported("calibrate")
+
+    def _as_input(self, images) -> torch.Tensor:
+        # uint8 transport: the same integer bytes / 255 in float32 as the
+        # loader's float batches, normalized on the device
+        images = torch.as_tensor(images).to(self.device)
+        if images.dtype == torch.uint8:
+            images = images.float() / 255.0
+        return images.to(self.dtype)
+
+    def _finish(self, out: torch.Tensor) -> torch.Tensor:
+        out = out.float()
+        if self.output_u8:
+            # save_image quantization on the device: clamp, x255, +0.5, truncate
+            out = torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5
+            out = torch.clamp(out, 0.0, 255.0).to(torch.uint8)
+        return out
+
+    def _restyle(self, feat, s_mean, s_std, alpha: float) -> torch.Tensor:
+        t = fused_adain(feat, s_mean, s_std, alpha=alpha)
+        return self._finish(vgg.apply_decoder(self.dec, t))
+
+    def _stats(self, s) -> torch.Tensor:
+        return torch.as_tensor(s, dtype=torch.float32).to(self.device)
+
+    @torch.no_grad()
+    def stylize(self, images, s_mean, s_std, alpha: float = 1.0) -> torch.Tensor:
+        """(B, H, W, 3) content in [0, 1] (or uint8) -> stylized images,
+        float32 unclamped (uint8 with ``output_u8``)."""
+        feat = vgg.apply_encoder(self.enc, self._as_input(images))
+        return self._restyle(feat, self._stats(s_mean), self._stats(s_std), alpha)
+
+    @torch.no_grad()
+    def stylize_multi(self, images, s_means, s_stds, alpha: float = 1.0) -> torch.Tensor:
+        """(B, H, W, 3) content x (S, C) style banks -> (S, B, H, W, 3): one
+        encode, S decodes."""
+        feat = vgg.apply_encoder(self.enc, self._as_input(images))
+        s_means, s_stds = self._stats(s_means), self._stats(s_stds)
+        return torch.stack(
+            [self._restyle(feat, m, s, alpha) for m, s in zip(s_means, s_stds)]
+        )
+
+    @torch.no_grad()
+    def style_stats_of(self, image) -> Tuple[torch.Tensor, torch.Tensor]:
+        """relu4_1 (mean, std) channel vectors of one (1, H, W, 3) image, with
+        the population (``ddof=0``) variance of the reference's single-style
+        statistics (CCST_SingleStyleTransfer.py:201-204)."""
+        feat = vgg.apply_encoder(self.enc, self._as_input(image))
+        mean, m2, count = channel_moments(feat[:1])
+        return mean, torch.sqrt(m2 / count + 1e-5)
+
+
+def bank_path_for(cfg: StylizeConfig, style: str) -> str:
+    """Style-bank file for ``style``: the native .npz, else the reference .npy."""
+    path = os.path.join(cfg.style_stats_dir, cfg.dataset.lower(), f"{style}_mean_std.npz")
+    return path if os.path.exists(path) else path[:-4] + ".npy"
+
+
+@dataclass
+class TransferReport:
+    target: str
+    styles: List[str]
+    images: int          # content images stylized per style
+    seconds: float
+    images_per_sec: float
+    # where the main loop sat blocked (see ccst_tpu.pipeline.stylize)
+    loader_wait_seconds: float = 0.0        # waiting for a decoded batch
+    fetch_wait_seconds: float = 0.0         # device compute + d2h, less backpressure
+    first_batch_wait_seconds: float = 0.0   # the priming decode
+    encode_backpressure_seconds: float = 0.0  # write-back queue full
+    encode_drain_seconds: float = 0.0       # final futures drain
+    style_decode_wait_seconds: float = 0.0  # single mode only
+
+
+def _content_loader(cfg: StylizeConfig) -> Tuple[ImageBatchLoader, List[str]]:
+    names, labels = parse_list(train_list_path(cfg.list_root, cfg.dataset, cfg.target))
+    paths = [os.path.join(cfg.data_root, n) for n in names] if cfg.data_root else names
+    loader = ImageBatchLoader(
+        paths, labels, batch_size=cfg.batch_size, image_size=cfg.image_size,
+        shuffle=False, out_dtype="uint8",
+    )
+    return loader, names
+
+
+def _out_path_of(cfg: StylizeConfig, rel: str, style: str, mode: str) -> str:
+    out_rel = stylized_output_path(rel, cfg.target, style, mode)
+    if cfg.save_ext:
+        out_rel = os.path.splitext(out_rel)[0] + cfg.save_ext
+    return os.path.join(cfg.output_root, out_rel) if cfg.output_root else out_rel
+
+
+# cap on queued write-back jobs: each pending future pins its image array
+_MAX_INFLIGHT_WRITES = 64
+
+
+def _writeback(
+    pool: cf.Executor,
+    outputs: np.ndarray,
+    rel_names: Sequence[str],
+    cfg: StylizeConfig,
+    style: str,
+    mode: str,
+    futs: List[cf.Future],
+) -> float:
+    """Queue the batch's images for encoding; returns the seconds spent
+    blocked on write-back backpressure."""
+    for img, rel in zip(outputs, rel_names):
+        futs.append(pool.submit(save_image_u8, img, _out_path_of(cfg, rel, style, mode)))
+    t1 = time.perf_counter()
+    while len(futs) > _MAX_INFLIGHT_WRITES:
+        futs.pop(0).result()
+    return time.perf_counter() - t1
+
+
+class _DispatchAhead:
+    """One-slot dispatch-ahead: the device->host copy of batch N runs only
+    after batch N+1 has been launched, so the card computes N+1 while the host
+    copies and encodes N. ``fetch_seconds`` is the time the loop sat in those
+    copies, less the encode backpressure the emit callback reports."""
+
+    def __init__(self) -> None:
+        self._pending = None   # (device tensor, emit callback)
+        self.fetch_seconds = 0.0
+
+    def push(self, outs_device: torch.Tensor, emit) -> None:
+        prev, self._pending = self._pending, (outs_device, emit)
+        if prev is not None:
+            self._flush(prev)
+
+    def drain(self) -> None:
+        if self._pending is not None:
+            self._flush(self._pending)
+            self._pending = None
+
+    def _flush(self, p) -> None:
+        t1 = time.perf_counter()
+        outs_device, emit = p
+        backpressure = emit(outs_device.cpu().numpy()) or 0.0
+        self.fetch_seconds += time.perf_counter() - t1 - backpressure
+
+
+def _run_transfer(cfg: StylizeConfig, engine: StylizeEngine, mode: str) -> TransferReport:
+    if mode.lower() == "single":
+        raise not_ported("single")
+    if cfg.skip_existing:
+        raise not_ported("skip_existing")
+    spec = dataset_spec(cfg.dataset)
+    styles = [d for d in spec.domains if d != cfg.target]
+    loader, rel_names = _content_loader(cfg)
+
+    t0 = time.perf_counter()
+    n_done = 0
+    # batch-major: decode and encode each content batch once, then restyle it
+    # under every style bank
+    bank = [load_style_stats(bank_path_for(cfg, style)) for style in styles]
+    s_means = engine._stats(np.stack([m for m, _ in bank]))
+    s_stds = engine._stats(np.stack([s for _, s in bank]))
+    with cf.ThreadPoolExecutor(8) as pool:
+        offset = 0
+        futs: List[cf.Future] = []
+        pipe = _DispatchAhead()
+        t_loader = t_first = t_bp = 0.0
+        it = iter(loader)
+        first = True
+        while True:
+            t1 = time.perf_counter()
+            batch = next(it, None)
+            dt = time.perf_counter() - t1
+            if first:
+                t_first, first = dt, False
+            else:
+                t_loader += dt
+            if batch is None:
+                break
+            # slice to the valid rows on the device so padding never crosses
+            # the d2h link
+            outs = engine.stylize_multi(
+                torch.from_numpy(batch.images), s_means, s_stds, cfg.alpha
+            )[:, : batch.valid]
+            rel = rel_names[offset : offset + batch.valid]
+            offset += batch.valid
+
+            def emit(outs_np, rel=rel):
+                nonlocal n_done, t_bp
+                bp = 0.0
+                for si, style in enumerate(styles):
+                    bp += _writeback(pool, outs_np[si], rel, cfg, style, mode, futs)
+                    n_done += len(rel)
+                t_bp += bp
+                return bp  # _DispatchAhead subtracts it from fetch_wait
+
+            pipe.push(outs, emit)
+        pipe.drain()
+        t1 = time.perf_counter()
+        for f in futs:
+            f.result()
+        t_drain = time.perf_counter() - t1
+    elapsed = time.perf_counter() - t0
+    report = TransferReport(
+        target=cfg.target,
+        styles=styles,
+        images=n_done // max(len(styles), 1),
+        seconds=elapsed,
+        images_per_sec=n_done / max(elapsed, 1e-9),
+        loader_wait_seconds=round(t_loader, 3),
+        fetch_wait_seconds=round(pipe.fetch_seconds, 3),
+        first_batch_wait_seconds=round(t_first, 3),
+        encode_backpressure_seconds=round(t_bp, 3),
+        encode_drain_seconds=round(t_drain, 3),
+    )
+    _write_timing(cfg, mode, report)
+    return report
+
+
+def _write_timing(cfg: StylizeConfig, mode: str, report: TransferReport) -> None:
+    """Timing file, e.g. ``pacs_photo_overall_stylize_time.json``
+    (CCST_OverallStyleTransfer.py:171-175)."""
+    root = cfg.output_root or "."
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(
+        root, f"{cfg.dataset.lower()}_{cfg.target}_{mode.lower()}_stylize_time.json"
+    )
+    with open(path, "w") as f:
+        json.dump(
+            {
+                "target": report.target,
+                "styles": report.styles,
+                "seconds": report.seconds,
+                "images_per_style": report.images,
+                "images_per_sec": report.images_per_sec,
+                "image_size": cfg.image_size,
+                "batch_size": cfg.batch_size,
+                "loader_wait_seconds": report.loader_wait_seconds,
+                "fetch_wait_seconds": report.fetch_wait_seconds,
+                "first_batch_wait_seconds": report.first_batch_wait_seconds,
+                "encode_backpressure_seconds": report.encode_backpressure_seconds,
+                "encode_drain_seconds": report.encode_drain_seconds,
+                "style_decode_wait_seconds": report.style_decode_wait_seconds,
+            },
+            f,
+            indent=2,
+        )
+
+
+def run_overall_transfer(cfg: StylizeConfig, engine: StylizeEngine) -> TransferReport:
+    """Domain-bank ("Overall") cross-client transfer
+    (CCST_OverallStyleTransfer.py:138-167)."""
+    return _run_transfer(cfg, engine, "overall")
+
+
+def run_single_transfer(cfg: StylizeConfig, engine: StylizeEngine) -> TransferReport:
+    """Per-batch random single-style transfer (CCST_SingleStyleTransfer.py:163-224)."""
+    return _run_transfer(cfg, engine, "single")
