@@ -1,10 +1,15 @@
 """ccst-tpu-torch — the CLI of the PyTorch / CUDA port.
 
-The ``style-bank`` and ``stylize`` subcommands of ``ccst-tpu``, over the same
-``StylizeConfig`` flags, plus ``--device`` (default ``cuda``):
+The ``style-bank``, ``calibrate`` and ``stylize`` subcommands of ``ccst-tpu``,
+over the same ``StylizeConfig`` flags, plus ``--device`` (default ``cuda``):
 
   ccst-tpu-torch style-bank --dataset pacs --list-root $DATA --data-root $DATA ...
-  ccst-tpu-torch stylize    --dataset pacs --target photo --mode overall ...
+  ccst-tpu-torch calibrate  --dataset pacs --target photo --engine int8-fused ...
+  ccst-tpu-torch stylize    --dataset pacs --target photo --mode overall \
+                            --engine int8-fused ...
+
+``calibrate`` writes the int8 scales file that ``stylize`` of either package
+picks up (``--scales PATH``, or the default path next to the style banks).
 
 Weights are ``.pth`` (reference checkpoints) or the native ``.npz`` that
 ``ccst-tpu`` also reads. The ported subset is listed in
@@ -14,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from dataclasses import fields
 from typing import Any, Optional
@@ -67,6 +73,54 @@ def cmd_style_bank(args) -> int:
     return 0
 
 
+def _load_scales_for(cfg, enc, dec):
+    """The int8 calibration for a stylize run: an explicit ``--scales PATH``
+    must exist and belong to these weights (else it raises); with no flag,
+    ``calibrate``'s default file is loaded when present, and skipped with a
+    warning when it belongs to other weights (the engine then calibrates on
+    its first batch). Stale clipping ranges are never applied silently."""
+    from ccst_tpu_torch.models.vgg_fast import load_scales, weights_fingerprint
+    from ccst_tpu_torch.pipeline.stylize import INT8_ENGINES, scales_path_for
+
+    if cfg.engine not in INT8_ENGINES:
+        return None
+
+    fp = weights_fingerprint(enc, dec)
+    if cfg.scales:
+        return load_scales(cfg.scales, expect_fingerprint=fp)
+    default = scales_path_for(cfg)
+    if os.path.exists(default):
+        try:
+            scales = load_scales(default, expect_fingerprint=fp)
+        except ValueError as e:
+            print(f"[warn] ignoring stale calibration: {e}")
+            return None
+        print(f"[info] loading int8 calibration from {default}")
+        return scales
+    return None
+
+
+def cmd_calibrate(args) -> int:
+    """Compute and write the int8 engines' static activation scales (the
+    first ``--max-images`` train-list images and the style banks,
+    ``run_calibration``)."""
+    from ccst_tpu.config import StylizeConfig
+    from ccst_tpu_torch.pipeline.style_bank import torch_dtype
+    from ccst_tpu_torch.pipeline.stylize import INT8_ENGINES, StylizeEngine, run_calibration
+
+    cfg = _dataclass_from_args(StylizeConfig, args)
+    enc, dec = _load_engine_params(args)
+    engine = StylizeEngine(
+        enc, dec, dtype=torch_dtype(cfg.dtype), device=args.device,
+        # only the static engines have scales to write
+        engine=cfg.engine if cfg.engine in INT8_ENGINES else "int8-static",
+    )
+    # --scales doubles as the output path (stylize --scales then reads it)
+    path = run_calibration(cfg, engine, max_images=args.max_images, out_path=cfg.scales)
+    print(json.dumps({"scales_path": path, "n_scales": len(engine.scales)}))
+    return 0
+
+
 def cmd_stylize(args) -> int:
     from ccst_tpu.config import StylizeConfig
     from ccst_tpu_torch.pipeline.style_bank import torch_dtype
@@ -82,7 +136,7 @@ def cmd_stylize(args) -> int:
         enc, dec, dtype=torch_dtype(cfg.dtype), device=args.device,
         output_size=cfg.output_size,
         output_u8=True,  # quantize on the device: 4x less device->host traffic
-        engine=cfg.engine,
+        engine=cfg.engine, scales=_load_scales_for(cfg, enc, dec),
     )
     run = run_single_transfer if cfg.mode.lower() == "single" else run_overall_transfer
     report = run(cfg, engine)
@@ -114,6 +168,11 @@ def main(argv: Optional[list] = None) -> int:
     p = sub.add_parser("stylize", help="cross-client style transfer")
     _add_dataclass_args(p, StylizeConfig)
     p.set_defaults(fn=cmd_stylize)
+
+    p = sub.add_parser("calibrate", help="write int8-static calibration scales")
+    _add_dataclass_args(p, StylizeConfig)
+    p.add_argument("--max-images", type=int, default=8)
+    p.set_defaults(fn=cmd_calibrate)
 
     for p in sub.choices.values():
         p.add_argument("--device", default="cuda",

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels (``ccst_tpu_torch/csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, bound through ``ctypes``. The library is built at
-first use, named by a hash of the sources and flags, under
-``ccst_tpu_torch/_build/`` (listed in ``.gitignore``); a later call in the same
-checkout reuses it. Only sources in this repository and the CUDA toolkit are
-used. A failed build raises with the compiler's output.
+Each source is compiled with ``nvcc`` for ``sm_90a`` to an object file, all of
+them at once in parallel processes, and the objects are linked into one shared
+library with a plain C interface, bound through ``ctypes``. The library is
+built at first use, named by a hash of the sources, the headers and the flags,
+under ``ccst_tpu_torch/_build/`` (listed in ``.gitignore``); a later call in the
+same checkout reuses it. Only sources in this repository and the CUDA toolkit
+are used. A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -23,8 +24,19 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: pointers and the stream as c_void_p, ints as c_int
+SIGNATURES = {
+    # x, wk, bias, y, N, H, W, Cin, Cout, Kp, Np, relu, stream
+    "ccst_reflect_conv3x3_bf16": [_P] * 4 + [_I] * 8 + [_P],
+    # x, wk, k, kb, y, N, H, W, Cin, Cout, Kp, Np, reflect, relu, out_kind, stream
+    "ccst_qconv3x3_s8": [_P] * 5 + [_I] * 10 + [_P],
+    # x, w1, k1, kb1, w2, k2, kb2, y, N, Hb, Wb, Cin, Kp1, Kp2, Cout, pool, stream
+    "ccst_fused_two_conv_s8": [_P] * 8 + [_I] * 8 + [_P],
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -41,28 +53,42 @@ def _nvcc() -> str:
     return path
 
 
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
     """Path of the library for the current sources (built or not)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libccst_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                  for src, obj in zip(_sources(), objs)])
+        tmp = os.path.join(tmpdir, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
 def library() -> ctypes.CDLL:
@@ -74,8 +100,9 @@ def library() -> ctypes.CDLL:
             if not path.exists():
                 _compile(path)
             lib = ctypes.CDLL(str(path))
-            fn = lib.ccst_reflect_conv3x3_bf16
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -97,11 +97,17 @@ def conv1x1(x: torch.Tensor, cw: ConvWeights) -> torch.Tensor:
 
 
 def maxpool_ceil(x: torch.Tensor) -> torch.Tensor:
-    """2x2/2 max pool with ceil_mode=True (-inf padding on odd sizes)."""
+    """2x2/2 max pool with ceil_mode=True. Odd sizes are padded with the
+    identity of max: -inf for floats, the type's minimum for integers (the
+    int8 engines pool quantized tensors)."""
     n, h, w, c = x.shape
     pad_h, pad_w = h % 2, w % 2
     if pad_h or pad_w:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad_w, 0, pad_h), value=float("-inf"))
+        if x.dtype.is_floating_point:
+            fill = float("-inf")
+        else:
+            fill = torch.iinfo(x.dtype).min
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad_w, 0, pad_h), value=fill)
         h, w = h + pad_h, w + pad_w
     return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 

@@ -5,17 +5,24 @@ style_transfer/AdaIN/CCST_OverallStyleTransfer.py): for a content domain,
 write a stylized copy of every train image under each other domain's shared
 style bank.
 
-  - :class:`StylizeEngine` (engine ``ref``): weights cast once to the compute
-    dtype on one device; encode -> fused AdaIN + alpha blend -> decode, with
-    the three kernels of ``kernels/`` on the card. ``stylize_multi`` encodes a
-    batch once and decodes it under S style banks.
+  - :class:`StylizeEngine`: weights cast once to the compute dtype on one
+    device; encode -> fused AdaIN + alpha blend -> decode, through the kernels
+    of ``kernels/`` on the card. ``stylize_multi`` encodes a batch once and
+    decodes it under S style banks. Engines:
+      ``ref``          bf16 (or f32) reference executor, conv kernel K3;
+      ``int8-static``  int8 end to end with calibrated static scales
+                       (``models/vgg_fast.py``), int8 conv kernel K0;
+      ``int8-fused``   ``int8-static`` with the encoder's level-1 stage as one
+                       kernel (K1); the same outputs.
+    The int8 engines calibrate on the first batch and style bank they see, or
+    take ``scales`` (from ``calibrate``, :func:`run_calibration`).
   - The transfer loop decodes each content batch once (uint8 transport,
     normalized on the device), launches batch N+1 before it copies batch N's
     uint8 output to the host, and encodes the images on a thread pool.
 
 Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md): the
-``packed``/``int8``/``int8-static``/``int8-fused`` engines and calibration,
-``--mode single``, ``skip_existing`` and ``output_size > 0``.
+``packed`` and dynamic ``int8`` engines, ``--mode single``, ``skip_existing``
+and ``output_size > 0``.
 """
 from __future__ import annotations
 
@@ -24,30 +31,29 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ccst_tpu.config import StylizeConfig, dataset_spec
 from ccst_tpu.data.lists import parse_list, stylized_output_path, train_list_path
-from ccst_tpu.data.loader import ImageBatchLoader, save_image_u8
+from ccst_tpu.data.loader import ImageBatchLoader, load_image, save_image_u8
 from ccst_tpu_torch.kernels.adain import fused_adain
 from ccst_tpu_torch.kernels.moments import channel_moments
-from ccst_tpu_torch.models import vgg
+from ccst_tpu_torch.models import vgg, vgg_fast
 from ccst_tpu_torch.pipeline.style_bank import load_style_stats
 
 # what is not ported yet, and the ROADMAP.md Queue 1 item it waits for
 _WAITS = {
-    "packed": "item 4 (the packed engine)",
-    "int8": "item 8 (int8 engines)",
-    "int8-static": "item 8 (int8 engines)",
-    "int8-fused": "item 8 (int8 engines, kernel K1)",
-    "calibrate": "item 8 (int8-static calibration)",
+    "packed": "item 4 (the packed bf16 engine)",
+    "int8": "item 8 (the dynamic-scale int8 engine)",
     "output_size": "item 4 (resize_bilinear)",
     "single": "item 6 (single-mode transfer)",
     "skip_existing": "item 6 (skip_existing reruns)",
 }
+INT8_ENGINES = ("int8-static", "int8-fused")  # calibrated static scales
+ENGINES = ("ref", *INT8_ENGINES)
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -57,7 +63,9 @@ def not_ported(what: str) -> NotImplementedError:
 
 
 class StylizeEngine:
-    """AdaIN stylization on one device; weights cast once to ``dtype``."""
+    """AdaIN stylization on one device; weights cast once to ``dtype``.
+    ``engine`` is one of :data:`ENGINES`; ``scales`` is a persisted int8
+    calibration (``models/vgg_fast.py::load_scales``)."""
 
     def __init__(
         self,
@@ -69,8 +77,9 @@ class StylizeEngine:
         output_size: int = -1,
         output_u8: bool = False,
         engine: str = "ref",
+        scales: Optional[Dict[str, float]] = None,
     ):
-        if engine != "ref":
+        if engine not in ENGINES:
             if engine not in _WAITS:
                 raise ValueError(f"unknown stylize engine {engine!r}")
             raise not_ported(engine)
@@ -78,13 +87,52 @@ class StylizeEngine:
             raise not_ported("output_size")
         self.dtype = dtype
         self.device = torch.device(device)
-        self.enc = vgg.prepare_params(encoder_params, dtype, self.device)
-        self.dec = vgg.prepare_params(decoder_params, dtype, self.device)
+        self.engine = engine
         self.output_u8 = output_u8
+        self.scales = scales
+        self._needs_calibration = engine in INT8_ENGINES and scales is None
+        if engine == "ref":
+            self.enc = vgg.prepare_params(encoder_params, dtype, self.device)
+            self.dec = vgg.prepare_params(decoder_params, dtype, self.device)
+            self._encode = lambda x: vgg.apply_encoder(self.enc, x)
+            self._decode = lambda t: vgg.apply_decoder(self.dec, t)
+            return
+        # the int8 engines keep only the dtype-rounded weights they quantize
+        # and calibrate; their executors exist once scales do
+        self.enc = self.dec = None
+        self._enc_w = vgg_fast.cast_params(encoder_params, dtype)
+        self._dec_w = vgg_fast.cast_params(decoder_params, dtype)
+        if scales is not None:
+            self._build_int8(scales)
 
-    def calibrate(self, images, style_stats, max_images: int = 8) -> None:
-        """int8-static calibration (``ccst_tpu`` ``StylizeEngine.calibrate``)."""
-        raise not_ported("calibrate")
+    def _build_int8(self, scales) -> None:
+        ep = vgg_fast.prepare_encoder_q8s(self._enc_w, scales, self.dtype, self.device)
+        dp = vgg_fast.prepare_decoder_q8s(self._dec_w, scales, self.dtype, self.device)
+        encode = (vgg_fast.apply_encoder_q8s_fused if self.engine == "int8-fused"
+                  else vgg_fast.apply_encoder_q8s)
+        self._encode = lambda x: encode(ep, x, self.dtype)
+        # both engines decode through the unfused chain, as ccst_tpu's do
+        self._decode = lambda t: vgg_fast.apply_decoder_q8s(dp, t, self.dtype)
+
+    @torch.no_grad()
+    def calibrate(self, images, style_stats: Sequence[Tuple], max_images: int = 8) -> None:
+        """int8 engines: one float32 reference pass over at most
+        ``max_images`` content images and the style bank, then rebuild the
+        quantized executors. Other engines: nothing to do."""
+        if self.engine not in INT8_ENGINES:
+            return
+        x = torch.as_tensor(images[:max_images]).to(self.device)
+        if x.dtype == torch.uint8:  # u8-transport batches calibrate in float32
+            x = x.float() / 255.0
+        self.scales = vgg_fast.calibrate_scales(
+            self._enc_w, self._dec_w, x.float(), list(style_stats)
+        )
+        self._build_int8(self.scales)
+        self._needs_calibration = False
+
+    def _ensure_calibrated(self, images, s_means, s_stds) -> None:
+        if self._needs_calibration:
+            self.calibrate(images, list(zip(s_means, s_stds)))
 
     def _as_input(self, images) -> torch.Tensor:
         # uint8 transport: the same integer bytes / 255 in float32 as the
@@ -104,7 +152,7 @@ class StylizeEngine:
 
     def _restyle(self, feat, s_mean, s_std, alpha: float) -> torch.Tensor:
         t = fused_adain(feat, s_mean, s_std, alpha=alpha)
-        return self._finish(vgg.apply_decoder(self.dec, t))
+        return self._finish(self._decode(t))
 
     def _stats(self, s) -> torch.Tensor:
         return torch.as_tensor(s, dtype=torch.float32).to(self.device)
@@ -113,15 +161,18 @@ class StylizeEngine:
     def stylize(self, images, s_mean, s_std, alpha: float = 1.0) -> torch.Tensor:
         """(B, H, W, 3) content in [0, 1] (or uint8) -> stylized images,
         float32 unclamped (uint8 with ``output_u8``)."""
-        feat = vgg.apply_encoder(self.enc, self._as_input(images))
-        return self._restyle(feat, self._stats(s_mean), self._stats(s_std), alpha)
+        s_mean, s_std = self._stats(s_mean), self._stats(s_std)
+        self._ensure_calibrated(images, s_mean[None], s_std[None])
+        feat = self._encode(self._as_input(images))
+        return self._restyle(feat, s_mean, s_std, alpha)
 
     @torch.no_grad()
     def stylize_multi(self, images, s_means, s_stds, alpha: float = 1.0) -> torch.Tensor:
         """(B, H, W, 3) content x (S, C) style banks -> (S, B, H, W, 3): one
         encode, S decodes."""
-        feat = vgg.apply_encoder(self.enc, self._as_input(images))
         s_means, s_stds = self._stats(s_means), self._stats(s_stds)
+        self._ensure_calibrated(images, s_means, s_stds)
+        feat = self._encode(self._as_input(images))
         return torch.stack(
             [self._restyle(feat, m, s, alpha) for m, s in zip(s_means, s_stds)]
         )
@@ -130,7 +181,10 @@ class StylizeEngine:
     def style_stats_of(self, image) -> Tuple[torch.Tensor, torch.Tensor]:
         """relu4_1 (mean, std) channel vectors of one (1, H, W, 3) image, with
         the population (``ddof=0``) variance of the reference's single-style
-        statistics (CCST_SingleStyleTransfer.py:201-204)."""
+        statistics (CCST_SingleStyleTransfer.py:201-204). Every engine takes
+        them through the ``ref`` encoder, as ``ccst_tpu``'s engine does."""
+        if self.enc is None:  # int8 engines prepare it on first use
+            self.enc = vgg.prepare_params(self._enc_w, self.dtype, self.device)
         feat = vgg.apply_encoder(self.enc, self._as_input(image))
         mean, m2, count = channel_moments(feat[:1])
         return mean, torch.sqrt(m2 / count + 1e-5)
@@ -140,6 +194,41 @@ def bank_path_for(cfg: StylizeConfig, style: str) -> str:
     """Style-bank file for ``style``: the native .npz, else the reference .npy."""
     path = os.path.join(cfg.style_stats_dir, cfg.dataset.lower(), f"{style}_mean_std.npz")
     return path if os.path.exists(path) else path[:-4] + ".npy"
+
+
+def scales_path_for(cfg: StylizeConfig) -> str:
+    """Default location of the persisted int8 calibration, next to the style
+    banks: ``{style_stats_dir}/{dataset}/{target}_q8_scales.json``."""
+    return os.path.join(
+        cfg.style_stats_dir, cfg.dataset.lower(), f"{cfg.target}_q8_scales.json"
+    )
+
+
+def run_calibration(
+    cfg: StylizeConfig, engine: StylizeEngine, max_images: int = 8, out_path: str = ""
+) -> str:
+    """Deterministic offline calibration for the int8 engines: the FIRST
+    ``max_images`` entries of the target's train list, in list order, and
+    every other domain's style bank. Writes the scales file
+    (:func:`vgg_fast.save_scales`, with the weights' fingerprint) and returns
+    its path; ``stylize`` reloads it from there or from ``--scales``."""
+    if engine.engine not in INT8_ENGINES:
+        raise ValueError(
+            f"engine {engine.engine!r} does not support static calibration "
+            "(use int8-static or int8-fused)"
+        )
+    spec = dataset_spec(cfg.dataset)
+    styles = [d for d in spec.domains if d != cfg.target]
+    names, _ = parse_list(train_list_path(cfg.list_root, cfg.dataset, cfg.target))
+    names = names[:max_images]
+    paths = [os.path.join(cfg.data_root, n) if cfg.data_root else n for n in names]
+    images = np.stack([load_image(p, cfg.image_size) for p in paths])
+    bank = [load_style_stats(bank_path_for(cfg, style)) for style in styles]
+    engine.calibrate(images, bank, max_images=max_images)
+    return vgg_fast.save_scales(
+        out_path or scales_path_for(cfg), engine.scales,
+        fingerprint=vgg_fast.weights_fingerprint(engine._enc_w, engine._dec_w),
+    )
 
 
 @dataclass

@@ -8,33 +8,46 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
 
   1. device: the card's name and power limit (nvidia-smi), TF32 off so the
      float32 plain references are true float32;
-  2. build: the CUDA kernel library from ``ccst_tpu_torch/csrc``;
-  3. each kernel (K3 conv, K4 AdaIN, K5 moments) against its plain PyTorch
-     version on the card at the shapes of the 512 px path, with its
-     tolerance, and the median time of both;
-  4. the main path through the CLI entry point, in this process:
-     ``style-bank`` for four synthetic PACS domains, then
-     ``stylize --target photo --mode overall`` at 512 px in bfloat16, with
-     seeded random weights; the outputs must exist and be finite, and every
-     kernel's launch count must be exactly what the path implies;
-  5. the whole stylize path against the same path composed from the plain
-     versions, on the same weights and a 512 px batch: MAE <= 1e-3.
+  2. build: the CUDA kernel library from ``ccst_tpu_torch/csrc`` (one nvcc
+     per source, in parallel);
+  3. each kernel against its plain PyTorch version on the card at the shapes
+     of the 512 px path, with the median time of both: K3 conv, K4 AdaIN, K5
+     moments with their tolerances; K0 int8 conv, K1 fused level-1 encoder and
+     K2 fused level-1 decoder bit for bit, with K0's int8 TOPS; then ragged
+     shapes (odd planes, Cout = 12, one-row tiles);
+  4. the main paths through the CLI entry point, in this process, each with
+     every launch count zeroed before it and read after it: ``style-bank``
+     for four synthetic PACS domains, ``stylize --target photo --mode
+     overall`` (bf16 ``ref`` engine), ``calibrate --target photo``, then
+     ``stylize --engine int8-fused`` at 512 px in bfloat16 with seeded random
+     weights; outputs must exist and be finite, and every kernel's launch
+     count must be exactly what the path implies;
+  5. on one 512 px batch: the ``ref`` path against the same path composed
+     from the plain versions (MAE <= 1e-3); ``int8-fused`` against its plain
+     composition (MAE <= 1e-3), against ``int8-static`` (bit for bit) and
+     against ``ref`` (PSNR > 20 dB); ``apply_decoder_q8s_fused`` (K2) against
+     ``apply_decoder_q8s`` (bit for bit); device-only ``stylize_multi`` times
+     of the three engines.
 
 The random decoder's last conv is rescaled (x12, bias +0.5) so that stylized
 outputs spread over [0, 1] as real ones do: the MAE bar is then 0.1% of the
 output's range, as it is for a real image, and the PNGs the CLI writes are not
 near-constant.
 
-    python3 chip_smoke.py --images-per-domain 512 --batch-size 32
+    python3 chip_smoke.py --images-per-domain 32 --batch-size 32
 
-runs the same phases on a larger synthetic tree, for a disk-to-disk rate over
-more than the first few batches.
+runs the same phases on a larger synthetic tree and batch, for the device
+rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel, whose
+``launches`` are the phase-4 main paths' counts only (K2 is on none of them);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import contextlib
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,9 +58,41 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # same bf16 operands, f32 sums in another order
 MAE_BAR = 1e-3                         # ROADMAP.md / BASELINE stylize bar
 MIN_SPREAD = 0.5                       # the bar above assumes outputs spread over [0, 1]
+PSNR_BAR = 20.0                        # int8 vs bf16 ref, ccst_tpu's tests/test_vgg_fast.py bar
+INT8_PEAK_TOPS = 1979.0                # H100 SXM dense int8, NVIDIA data sheet
 DOMAINS = ("art_painting", "cartoon", "photo", "sketch")
 SIZE = 512
 DEC_SCALE, DEC_SHIFT = 12.0, 0.5       # last decoder conv: outputs spread over [0, 1]
+
+# K0 at the shapes the int8 engines launch at batch 4, 512 px:
+# (layer, (N, H, W, Cin, Cout), pad, requant, relu)
+K0_SHAPES = [
+    ("conv1_1 packed (int8-static)", (4, 256, 256, 12, 256), "edge", True, True),
+    ("conv1_2 packed (int8-static)", (4, 256, 256, 256, 256), "edge", True, True),
+    ("conv2_1", (4, 256, 256, 64, 128), "reflect", True, True),
+    ("conv2_2", (4, 256, 256, 128, 128), "reflect", True, True),
+    ("conv3_1", (4, 128, 128, 128, 256), "reflect", True, True),
+    ("conv3_2..3_4, dconv3_4..3_2", (4, 128, 128, 256, 256), "reflect", True, True),
+    ("conv4_1 (dequant)", (4, 64, 64, 256, 512), "reflect", False, True),
+    ("dconv4_1", (4, 64, 64, 512, 256), "reflect", True, True),
+    ("dconv3_1", (4, 128, 128, 256, 128), "reflect", True, True),
+    ("dconv2_1", (4, 256, 256, 128, 64), "reflect", True, True),
+    ("dconv1_2 folded", (4, 256, 256, 64, 256), "edge", True, True),
+    ("dconv1_1 packed (dequant)", (4, 256, 256, 256, 12), "edge", False, False),
+]
+K0_MAIN = (4, 128, 128, 256, 256)
+# ragged K0 shapes, correctness only: odd plane and no ReLU (clip at -127),
+# Cout = 12 on an odd plane, the Cin = 12 gather on one row, the smallest
+# reflectable plane
+K0_EDGE = [
+    ((2, 37, 53, 64, 128), "reflect", True, False),
+    ((3, 17, 9, 256, 12), "edge", False, False),
+    ((1, 1, 5, 12, 256), "edge", True, True),
+    ((1, 2, 2, 64, 64), "reflect", True, True),
+]
+# ragged K1 / K2 planes (packed pixels): not multiples of the 8 x 16 tile,
+# 18 rows (which ccst_tpu's row-tile rule rejects), one row
+LEVEL1_EDGE = [(1, 18, 10), (2, 7, 33), (1, 1, 3)]
 
 
 def fail(msg: str) -> None:
@@ -66,6 +111,17 @@ def check_close(name, got, want, rtol, atol):
     if not bool((err <= atol + rtol * want.abs()).all()):
         fail(f"{name}: max abs err {err.max().item():.3e} exceeds rtol={rtol} atol={atol}")
     return err.max().item(), err.mean().item()
+
+
+def check_equal(torch, name, got, want):
+    """Bit for bit: same shape, dtype and values; returns the max abs err (0)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs()
+        fail(f"{name}: differs from its plain version at {int((diff > 0).sum())} elements, "
+             f"max abs err {diff.max().item():.3e}")
+    return 0.0
 
 
 def time_ms(torch, fn, reps=10, runs=5):
@@ -128,6 +184,102 @@ def cudnn_bf16_conv(torch, x, cw):
     return lambda: F.conv2d(xp, w, b)
 
 
+def int8_layer(torch, gen, cin, cout, requant, dev):
+    """Seeded random int8 weights and epilogue terms that spread y over about
+    +-100, as a QConvS on ``dev``."""
+    from ccst_tpu_torch.kernels.qconv import make_qconv
+
+    wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, dtype=torch.int8)
+    acc_std = 127 * 73 * math.sqrt(9 * cin)
+    k = (torch.rand((cout,), generator=gen) + 0.5) * 40 / acc_std
+    kb = torch.randn((cout,), generator=gen) * 10
+    return make_qconv(wq.numpy(), k.numpy(), kb.numpy(), False, requant, dev)
+
+
+def int8_input(torch, gen, shape, dev):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+
+
+def check_int8_kernels(torch, dev, gen, results):
+    """Phase 3, int8 part: K0, K1, K2 bit for bit against their plain
+    versions at the 512 px shapes, with times; then the ragged shapes."""
+    from ccst_tpu_torch.kernels.level1 import (
+        decoder_level1,
+        decoder_level1_reference,
+        encoder_level1,
+        encoder_level1_reference,
+    )
+    from ccst_tpu_torch.kernels.qconv import qconv3x3_s8, qconv3x3_s8_reference
+
+    def k0_pair(x, q, relu, pad):
+        kernel = lambda: qconv3x3_s8(x, q, relu, torch.bfloat16, pad)
+        plain = lambda: qconv3x3_s8_reference(x, q.wq, q.k, q.kb, relu, q.requant,
+                                              torch.bfloat16, pad)
+        return kernel, plain
+
+    for layer, (n, h, w, cin, cout), pad, requant, relu in K0_SHAPES:
+        x = int8_input(torch, gen, (n, h, w, cin), dev)
+        q = int8_layer(torch, gen, cin, cout, requant, dev)
+        kernel, plain = k0_pair(x, q, relu, pad)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        check_equal(torch, f"K0 {layer} {(n, h, w, cin, cout)}", got, want)
+        if requant and len(torch.unique(got)) < 20:
+            fail(f"K0 {layer}: outputs do not spread, the comparison would say little")
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, reps=2, runs=3)
+        tops = 2 * n * h * w * 9 * cin * cout / (ms * 1e-3) / 1e12
+        results["K0"].append(dict(layer=layer, shape=[n, h, w, cin, cout], pad=pad,
+                                  requant=requant, relu=relu, max_abs_err=0.0, ms=ms,
+                                  plain_ms=plain_ms, tops=tops,
+                                  peak_share=tops / INT8_PEAK_TOPS))
+        print(f"K0 qconv {layer} {(n, h, w, cin, cout)} {pad} "
+              f"{'requant' if requant else 'dequant bf16'} relu={relu}: bit-exact "
+              f"| kernel {ms:.4f} ms ({tops:.1f} TOPS, {100 * tops / INT8_PEAK_TOPS:.1f}% "
+              f"of {INT8_PEAK_TOPS:.0f}) plain f64 {plain_ms:.4f} ms")
+
+    for (n, h, w, cin, cout), pad, requant, relu in K0_EDGE:
+        x = int8_input(torch, gen, (n, h, w, cin), dev)
+        q = int8_layer(torch, gen, cin, cout, requant, dev)
+        kernel, plain = k0_pair(x, q, relu, pad)
+        got = kernel()
+        torch.cuda.synchronize()
+        check_equal(torch, f"K0 edge {(n, h, w, cin, cout)} {pad}", got, plain())
+
+    for tag, (n, hb, wb) in (("main", (4, 256, 256)), *(("edge", s) for s in LEVEL1_EDGE)):
+        c1, c2 = int8_layer(torch, gen, 12, 256, True, dev), int8_layer(torch, gen, 256, 256, True, dev)
+        x = int8_input(torch, gen, (n, hb, wb, 12), dev)
+        got = encoder_level1(x, c1, c2)
+        torch.cuda.synchronize()
+        check_equal(torch, f"K1 {tag} {(n, hb, wb, 12)}", got, encoder_level1_reference(x, c1, c2))
+        d2, d1 = int8_layer(torch, gen, 64, 256, True, dev), int8_layer(torch, gen, 256, 12, False, dev)
+        y = int8_input(torch, gen, (n, hb, wb, 64), dev)
+        got2 = decoder_level1(y, d2, d1)
+        torch.cuda.synchronize()
+        check_equal(torch, f"K2 {tag} {(n, hb, wb, 64)}", got2,
+                    decoder_level1_reference(y, d2, d1, torch.bfloat16))
+        if tag != "main":
+            continue
+        if len(torch.unique(got)) < 20:
+            fail("K1: outputs do not spread, the comparison would say little")
+        for k, kernel, plain, macs in (
+            ("K1", lambda: encoder_level1(x, c1, c2),
+             lambda: encoder_level1_reference(x, c1, c2), 108 * 256 + 2304 * 256),
+            ("K2", lambda: decoder_level1(y, d2, d1),
+             lambda: decoder_level1_reference(y, d2, d1, torch.bfloat16), 576 * 256 + 2304 * 12),
+        ):
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, plain, reps=2, runs=3)
+            tops = 2 * n * hb * wb * macs / (ms * 1e-3) / 1e12
+            results[k].append(dict(shape=[n, hb, wb, 12 if k == "K1" else 64], max_abs_err=0.0,
+                                   ms=ms, plain_ms=plain_ms, tops=tops))
+            print(f"{k} level1 {(n, hb, wb)} packed: bit-exact | kernel {ms:.4f} ms "
+                  f"({tops:.1f} TOPS of the unfused chain's MACs) plain f64 chain {plain_ms:.4f} ms")
+    torch.cuda.synchronize()
+    print("edge shapes: K0, K1, K2 equal their plain versions")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--images-per-domain", type=int, default=8)
@@ -154,7 +306,13 @@ def main() -> int:
         reflect_conv3x3,
         reflect_conv3x3_reference,
     )
+    from ccst_tpu_torch.kernels.level1 import (
+        decoder_level1,
+        encoder_level1,
+        encoder_level1_reference,
+    )
     from ccst_tpu_torch.kernels.moments import channel_moments, channel_moments_reference
+    from ccst_tpu_torch.kernels.qconv import qconv3x3_s8, qconv3x3_s8_reference
 
     # -- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -177,7 +335,7 @@ def main() -> int:
 
     # -- 3. kernels vs plain versions --------------------------------------
     gen = torch.Generator().manual_seed(0)
-    results = {"K3": [], "K4": [], "K5": []}
+    results = {"K3": [], "K4": [], "K5": [], "K0": [], "K1": [], "K2": []}
 
     conv_shapes = [
         (4, 512, 512, 3, 64), (4, 512, 512, 64, 64), (4, 128, 128, 256, 256),
@@ -266,15 +424,19 @@ def main() -> int:
     torch.cuda.synchronize()
     print("edge shapes: K3, K4, K5 agree with their plain versions")
 
-    # -- 4. the main path through the CLI ----------------------------------
+    check_int8_kernels(torch, dev, gen, results)
+
+    # -- 4. the main paths through the CLI ---------------------------------
     import numpy as np
 
     from ccst_tpu_torch import cli
-    from ccst_tpu_torch.models import convert, vgg
+    from ccst_tpu_torch.models import convert, vgg, vgg_fast
     from ccst_tpu_torch.pipeline.style_bank import load_style_stats
     from ccst_tpu_torch.pipeline.stylize import StylizeEngine
 
-    counters = {"K3": reflect_conv3x3, "K4": fused_adain, "K5": channel_moments}
+    counters = {"K3": reflect_conv3x3, "K4": fused_adain, "K5": channel_moments,
+                "K0": qconv3x3_s8, "K1": encoder_level1, "K2": decoder_level1}
+    launches = {k: 0 for k in counters}
     with tempfile.TemporaryDirectory(prefix="ccst_smoke_") as root:
         t0 = time.perf_counter()
         write_tree(root, images_per_domain)
@@ -289,39 +451,53 @@ def main() -> int:
         convert.save_npz(enc_path, enc)
         convert.save_npz(dec_path, dec)
         stats_dir = os.path.join(root, "style_stats")
-        common = [
-            "--dataset", "pacs", "--list-root", root, "--data-root", root,
-            "--output-root", root, "--style-stats-dir", stats_dir,
-            "--image-size", str(SIZE), "--batch-size", str(batch), "--dtype", "bfloat16",
-            "--vgg-weights", enc_path, "--decoder-weights", dec_path, "--device", "cuda",
-        ]
+        int8_root = os.path.join(root, "int8")
+
+        def common(out_root):
+            return [
+                "--dataset", "pacs", "--list-root", root, "--data-root", root,
+                "--output-root", out_root, "--style-stats-dir", stats_dir,
+                "--image-size", str(SIZE), "--batch-size", str(batch), "--dtype", "bfloat16",
+                "--vgg-weights", enc_path, "--decoder-weights", dec_path, "--device", "cuda",
+            ]
+
         n_bank_batches = len(DOMAINS) * -(-images_per_domain // batch)
         n_styles = len(DOMAINS) - 1
         n_content_batches = -(-images_per_domain // batch)
-        expect = {
-            "style-bank": {"K3": 9 * n_bank_batches, "K4": 0, "K5": n_bank_batches},
-            "stylize": {"K3": (9 + 9 * n_styles) * n_content_batches,
-                        "K4": n_styles * n_content_batches, "K5": 0},
-        }
-        launches = {k: 0 for k in counters}
-        for fn in counters.values():
-            fn.launches = 0
-        for step, argv in (
-            ("style-bank", ["style-bank", *common]),
-            ("stylize", ["stylize", *common, "--target", "photo", "--mode", "overall"]),
-        ):
-            before = {k: fn.launches for k, fn in counters.items()}
-            if cli.main(argv) != 0:
-                fail(f"{step} returned non-zero")
+        target = ["--target", "photo"]
+        steps = (
+            ("style-bank", ["style-bank", *common(root)],
+             {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
+            ("stylize ref", ["stylize", *common(root), *target, "--mode", "overall"],
+             {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_styles * n_content_batches}),
+            ("calibrate", ["calibrate", *common(root), *target, "--engine", "int8-fused"], {}),
+            ("stylize int8-fused", ["stylize", *common(int8_root), *target, "--mode", "overall",
+                                    "--engine", "int8-fused"],
+             {"K0": (7 + 9 * n_styles) * n_content_batches, "K1": n_content_batches,
+              "K4": n_styles * n_content_batches}),
+        )
+        for step, argv, expect in steps:
+            expect = {k: expect.get(k, 0) for k in counters}
+            for fn in counters.values():
+                fn.launches = 0
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
             torch.cuda.synchronize()
-            got = {k: fn.launches - before[k] for k, fn in counters.items()}
-            if got != expect[step]:
-                fail(f"{step}: kernel launches {got}, expected {expect[step]}")
+            got = {k: fn.launches for k, fn in counters.items()}
+            print(out.getvalue(), end="")
+            if rc != 0:
+                fail(f"{step} returned {rc}")
+            if got != expect:
+                fail(f"{step}: kernel launches {got}, expected {expect}")
             print(f"{step}: kernel launches {got} (as expected)")
-        for k, fn in counters.items():
-            launches[k] = fn.launches
+            if step == "stylize int8-fused" and "loading int8 calibration" not in out.getvalue():
+                fail("stylize int8-fused did not load the calibration that calibrate wrote")
+            for k in counters:
+                launches[k] += got[k]
+        for k in ("K0", "K1", "K3", "K4", "K5"):
             if launches[k] == 0:
-                fail(f"{k} was never launched on the main path")
+                fail(f"{k} was never launched on the main paths")
 
         for d in DOMAINS:
             mean, std = load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
@@ -331,18 +507,26 @@ def main() -> int:
                 t = json.load(f)
             print(f"style-bank {d}: {t['images']} images in {t['seconds']:.3f} s = "
                   f"{t['images_per_sec']:.1f} img/s at {SIZE} px")
-        out_dir = os.path.join(root, "PACS", "all_style_transferred_Overall", "photo")
-        outputs = [os.path.join(dp, f) for dp, _, fs in os.walk(out_dir) for f in fs]
-        if len(outputs) != images_per_domain * n_styles:
-            fail(f"stylize wrote {len(outputs)} images, expected {images_per_domain * n_styles}")
-        with open(os.path.join(root, "pacs_photo_overall_stylize_time.json")) as f:
-            timing = json.load(f)
-        print("stylize timing: " + json.dumps(timing))
-        sample = read_images(sorted(outputs)[:batch])
-        print(f"stylized PNGs: u8 range {sample.min()}..{sample.max()}, "
-              f"mean {sample.mean():.1f} over {len(sample)} images")
+        scales_path = os.path.join(stats_dir, "pacs", "photo_q8_scales.json")
+        scales = vgg_fast.load_scales(scales_path,
+                                      expect_fingerprint=vgg_fast.weights_fingerprint(enc, dec))
+        if len(scales) != 18 or not all(math.isfinite(v) and v > 0 for v in scales.values()):
+            fail(f"calibrate wrote bad scales: {scales}")
+        print(f"calibrate: {len(scales)} scales, {min(scales.values()):.4g}..{max(scales.values()):.4g}")
+        for engine_name, out_root in (("ref", root), ("int8-fused", int8_root)):
+            out_dir = os.path.join(out_root, "PACS", "all_style_transferred_Overall", "photo")
+            outputs = [os.path.join(dp, f) for dp, _, fs in os.walk(out_dir) for f in fs]
+            if len(outputs) != images_per_domain * n_styles:
+                fail(f"stylize {engine_name} wrote {len(outputs)} images, "
+                     f"expected {images_per_domain * n_styles}")
+            with open(os.path.join(out_root, "pacs_photo_overall_stylize_time.json")) as f:
+                timing = json.load(f)
+            print(f"stylize {engine_name} timing: " + json.dumps(timing))
+            sample = read_images(sorted(outputs)[:batch])
+            print(f"stylized PNGs ({engine_name}): u8 range {sample.min()}..{sample.max()}, "
+                  f"mean {sample.mean():.1f} over {len(sample)} images")
 
-        # -- 5. whole path vs the plain path --------------------------------
+        # -- 5. whole paths vs plain paths ------------------------------------
         from ccst_tpu_torch.models.vgg import Conv, Pool, Tap, Upsample
 
         banks = [load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
@@ -384,37 +568,137 @@ def main() -> int:
     err = (got - want).abs()
     mae = err.mean().item()
     spread = (want.max() - want.min()).item()
-    print(f"whole path vs plain path ({n_styles} styles x {batch} x {SIZE}px bf16): "
+    print(f"ref: whole path vs plain path ({n_styles} styles x {batch} x {SIZE}px bf16): "
           f"MAE {mae:.3e} ({mae / spread:.3e} of the output range) max {err.max().item():.3e}; "
           f"output range {want.min().item():.3f}..{want.max().item():.3f}")
     if not spread >= MIN_SPREAD:
         fail(f"outputs span {spread:.3f} < {MIN_SPREAD}: the MAE bar would say little")
     if not mae <= MAE_BAR:
         fail(f"whole-path MAE {mae:.3e} > {MAE_BAR}")
-    path_ms = time_ms(torch, lambda: engine.stylize_multi(images_u8, s_means, s_stds, 1.0),
-                      reps=3, runs=5)
-    print(f"stylize_multi on the device ({batch} x {SIZE}px, {n_styles} styles): "
-          f"{path_ms:.2f} ms/batch = {batch * n_styles / (path_ms * 1e-3):.1f} stylized img/s")
+    ref_out = got
+
+    # int8-fused, from the scales calibrate wrote, against its plain composition
+    def plain_q8s(ep, dp, images):
+        def qref(x, q, relu, pad):
+            return qconv3x3_s8_reference(x, q.wq, q.k, q.kb, relu, q.requant, torch.bfloat16, pad)
+
+        x = vgg.conv1x1((images.float() / 255.0).to(torch.bfloat16), ep["conv0"])
+        xq = vgg_fast.pack_s2d(vgg_fast.quantize_static(x, ep["__scales__"]["conv1_1"] / 127.0))
+        xq = encoder_level1_reference(xq, ep["conv1_1"], ep["conv1_2"])
+        pools = 0
+        for layer in vgg.ENCODER_ARCH:
+            if isinstance(layer, Conv) and layer.name not in ("conv0", "conv1_1", "conv1_2"):
+                xq = qref(xq, ep[layer.name], layer.relu, "reflect")
+                if layer.name == "conv4_1":
+                    break
+            elif isinstance(layer, Pool):
+                pools += 1
+                if pools > 1:
+                    xq = vgg.maxpool_ceil(xq)
+        outs = []
+        for m, s in zip(s_means, s_stds):
+            yq = vgg_fast.quantize_static(fused_adain_reference(xq, m, s, 1.0),
+                                          dp["__scales__"]["dconv4_1"] / 127.0)
+            for layer in vgg_fast._DEC_MID:
+                if isinstance(layer, Conv):
+                    yq = qref(yq, dp[layer.name], layer.relu, "reflect")
+                elif isinstance(layer, Upsample):
+                    yq = vgg.upsample_nearest2x(yq)
+            yq = qref(yq, dp["dconv1_2"], True, "edge")
+            outs.append(vgg_fast.unpack_d2s(qref(yq, dp["dconv1_1"], False, "edge"), 3).float())
+        return torch.stack(outs)
+
+    engines = {name: StylizeEngine(enc, dec, dtype=torch.bfloat16, device=dev, engine=name,
+                                   scales=scales)
+               for name in ("int8-fused", "int8-static")}
+    q8 = {}
+    for name, per_batch in (("int8-fused", {"K0": 7 + 9 * n_styles, "K1": 1}),
+                            ("int8-static", {"K0": 9 + 9 * n_styles, "K1": 0})):
+        for fn in counters.values():
+            fn.launches = 0
+        q8[name] = engines[name].stylize_multi(images_u8, s_means, s_stds, 1.0)
+        torch.cuda.synchronize()
+        counts = {k: counters[k].launches for k in ("K0", "K1", "K2", "K3", "K4")}
+        expect = {"K2": 0, "K3": 0, "K4": n_styles, **per_batch}
+        if counts != expect:
+            fail(f"{name} stylize_multi: launches {counts}, expected {expect}")
+        print(f"{name} stylize_multi: launches {counts} per content batch (as expected)")
+    fused_out = q8["int8-fused"]
+    if fused_out.shape != ref_out.shape or not bool(fused_out.isfinite().all()):
+        fail(f"int8-fused: shape {tuple(fused_out.shape)} or non-finite values")
+    check_equal(torch, "int8-fused vs int8-static", fused_out, q8["int8-static"])
+    print("int8-fused equals int8-static bit for bit")
+    ep = vgg_fast.prepare_encoder_q8s(engines["int8-fused"]._enc_w, scales, torch.bfloat16, dev)
+    dp = vgg_fast.prepare_decoder_q8s(engines["int8-fused"]._dec_w, scales, torch.bfloat16, dev)
+    with torch.no_grad():
+        want_q8 = plain_q8s(ep, dp, images_u8)
+    err = (fused_out - want_q8).abs()
+    mae_q8 = err.mean().item()
+    print(f"int8-fused: whole path vs plain path: MAE {mae_q8:.3e} max {err.max().item():.3e}; "
+          f"output range {want_q8.min().item():.3f}..{want_q8.max().item():.3f}")
+    if not mae_q8 <= MAE_BAR:
+        fail(f"int8-fused whole-path MAE {mae_q8:.3e} > {MAE_BAR}")
+    mse = ((fused_out - ref_out) ** 2).mean().item()
+    psnr = 10 * math.log10(spread ** 2 / mse)
+    print(f"int8-fused vs bf16 ref: PSNR {psnr:.2f} dB over the ref's range {spread:.3f} "
+          f"(MAE {(fused_out - ref_out).abs().mean().item():.3e})")
+    if not psnr > PSNR_BAR:
+        fail(f"int8-fused vs ref PSNR {psnr:.2f} dB <= {PSNR_BAR}")
+
+    # K2: the fused decoder path against the unfused one, on the AdaIN output
+    with torch.no_grad():
+        featq = vgg_fast.apply_encoder_q8s_fused(ep, (images_u8.float() / 255.0).to(torch.bfloat16))
+        t = fused_adain(featq, s_means[0], s_stds[0], 1.0)
+        for fn in counters.values():
+            fn.launches = 0
+        dec_fused = vgg_fast.apply_decoder_q8s_fused(dp, t)
+        torch.cuda.synchronize()
+        k2_launches = decoder_level1.launches
+        if k2_launches != 1 or qconv3x3_s8.launches != 7:
+            fail(f"apply_decoder_q8s_fused: K2 {k2_launches}, K0 {qconv3x3_s8.launches} "
+                 "launches, expected 1 and 7")
+        check_equal(torch, "apply_decoder_q8s_fused vs apply_decoder_q8s", dec_fused,
+                    vgg_fast.apply_decoder_q8s(dp, t))
+    print("apply_decoder_q8s_fused (K2) equals apply_decoder_q8s bit for bit")
+
+    rates = {}
+    for name, eng in (("ref", engine), *engines.items()):
+        ms = time_ms(torch, lambda: eng.stylize_multi(images_u8, s_means, s_stds, 1.0),
+                     reps=3, runs=5)
+        rates[name] = dict(ms=ms, img_s=batch * n_styles / (ms * 1e-3))
+        print(f"stylize_multi {name} on the device ({batch} x {SIZE}px, {n_styles} styles): "
+              f"{ms:.2f} ms/batch = {rates[name]['img_s']:.1f} stylized img/s")
+    print("device rates: " + json.dumps({"batch": batch, **rates}))
 
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
-               "ccst_tpu/kernels/conv_pallas.py:102", [4, 512, 512, 64, 64]),
+               "ccst_tpu/kernels/conv_pallas.py:102", [4, 512, 512, 64, 64], "stylize ref"),
         "K4": ("fused_adain", "triton", "ccst_tpu_torch/kernels/adain_triton.py",
-               "ccst_tpu/kernels/adain_pallas.py:56", [4, 64, 64, 512]),
+               "ccst_tpu/kernels/adain_pallas.py:56", [4, 64, 64, 512], "stylize ref, int8-fused"),
         "K5": ("channel_moments", "triton", "ccst_tpu_torch/kernels/moments_triton.py",
-               "ccst_tpu/kernels/welford_pallas.py:52", [3, 64, 64, 512]),
+               "ccst_tpu/kernels/welford_pallas.py:52", [3, 64, 64, 512], "style-bank"),
+        "K0": ("qconv3x3_s8", "cuda", "ccst_tpu_torch/csrc/qconv3x3_s8.cu",
+               "ccst_tpu/models/vgg_fast.py:381", list(K0_MAIN), "stylize int8-fused"),
+        "K1": ("encoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
+               "ccst_tpu/kernels/level1_pallas.py:367", [4, 256, 256, 12], "stylize int8-fused"),
+        "K2": ("decoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
+               "ccst_tpu/kernels/level1_pallas.py:380", [4, 256, 256, 64],
+               "none: no engine decodes through it (as in ccst_tpu)"),
     }
     kernels = []
-    for k, (name, route, source, replaces, shape) in sources.items():
+    for k, (name, route, source, replaces, shape, path) in sources.items():
         rows = results[k]
         main_row = next(r for r in rows if r["shape"] == shape
                         and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[k],
+            "launches": launches[k], "path": path,
+            # K2's launches in phase 5's direct apply_decoder_q8s_fused call
+            **({"side_check_launches": k2_launches} if k == "K2" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "timed_shape": shape,
             **({"cudnn_bf16_ms": main_row["cudnn_bf16_ms"]} if "cudnn_bf16_ms" in main_row else {}),
+            **({"tops": main_row["tops"]} if "tops" in main_row else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,15 @@
-"""The ccst-tpu-torch CLI on the CPU: style-bank -> stylize --mode overall on a
-synthetic PACS tree with one shared .npz weight file, held against ccst_tpu's
-style banks and stylize CLI on the same files.
+"""The ccst-tpu-torch CLI on the CPU: style-bank -> stylize --mode overall, and
+calibrate -> stylize --engine int8-fused, on a synthetic PACS tree with one
+shared .npz weight file, held against ccst_tpu's style banks, calibration and
+stylize CLI on the same files.
 
 Tolerances: banks rtol=1e-4, atol=1e-6 (float32 encoder, sums in another
-order); stylized PNGs within one uint8 level.
+order); calibration scales rtol=1e-5 (a float32 pass, sums in another order);
+stylized PNGs within one uint8 level.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -116,7 +119,44 @@ def test_pngs_match_jax_stylize_cli(tree):
         assert np.abs(ours.astype(int) - theirs.astype(int)).max() <= 1, rel
 
 
-@pytest.mark.parametrize("extra", [["--mode", "single"], ["--engine", "int8-static"]])
+def test_calibrate_then_int8_fused_stylize(tree, capsys):
+    """calibrate writes the scales file next to the banks; stylize picks it up
+    by default; ccst_tpu's calibrate on the same tree gives the same scales."""
+    from ccst_tpu.cli import main as jax_cli
+    from ccst_tpu.models.vgg_fast import load_scales as jax_load_scales
+    from ccst_tpu_torch.models import convert as tconvert
+    from ccst_tpu_torch.models import vgg_fast as tvf
+
+    stats = os.path.join(tree, "stats_int8")
+    shutil.copytree(os.path.join(tree, "stats_torch"), stats)
+    out = os.path.join(tree, "out_int8")
+    common = _common(tree, stats, out) + ["--device", "cpu", "--target", "photo"]
+    assert torch_cli(["calibrate", *common, "--engine", "int8-fused", "--max-images", "2"]) == 0
+    path = os.path.join(stats, "pacs", "photo_q8_scales.json")
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == {
+        "scales_path": path, "n_scales": 18,
+    }
+    fp = tvf.weights_fingerprint(tconvert.load_npz(os.path.join(tree, "enc.npz")),
+                                 tconvert.load_npz(os.path.join(tree, "dec.npz")))
+    ours = tvf.load_scales(path, expect_fingerprint=fp)
+    jax_path = os.path.join(tree, "jax_scales.json")
+    assert jax_cli(["calibrate", *_common(tree, stats, out), "--target", "photo",
+                    "--engine", "int8-fused", "--max-images", "2", "--scales", jax_path]) == 0
+    theirs = jax_load_scales(jax_path, expect_fingerprint=fp)
+    assert set(ours) == set(theirs)
+    for k in theirs:
+        np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-5, err_msg=k)
+
+    assert torch_cli(["stylize", *common, "--mode", "overall", "--engine", "int8-fused"]) == 0
+    assert f"loading int8 calibration from {path}" in capsys.readouterr().out
+    files = _outputs(out)
+    assert files == _outputs(os.path.join(tree, "out_torch"))
+    base = (out, "PACS", "all_style_transferred_Overall", "photo")
+    img = load_image(os.path.join(*base, files[0]), dtype="uint8")
+    assert img.shape == (32, 32, 3) and int(img.max()) > int(img.min())
+
+
+@pytest.mark.parametrize("extra", [["--mode", "single"], ["--engine", "packed"]])
 def test_unported_modes_raise(tree, extra):
     common = _common(tree, os.path.join(tree, "stats_torch"), os.path.join(tree, "x"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -124,10 +164,12 @@ def test_unported_modes_raise(tree, extra):
 
 
 def test_cli_never_loads_jax(tree):
+    common = [*_common(tree, os.path.join(tree, "stats_sub"), tree), "--device", "cpu"]
     code = (
         "import sys, json\n"
         "from ccst_tpu_torch.cli import main\n"
-        f"rc = main({['style-bank', *_common(tree, os.path.join(tree, 'stats_sub'), tree), '--domain', 'cartoon', '--device', 'cpu']!r})\n"
+        f"rc = main({['style-bank', *common]!r})\n"
+        f"rc += main({['calibrate', *common, '--target', 'photo', '--engine', 'int8-static']!r})\n"
         "print(json.dumps({'rc': rc, 'jax': 'jax' in sys.modules}))\n"
     )
     proc = subprocess.run(
@@ -136,3 +178,4 @@ def test_cli_never_loads_jax(tree):
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "jax": False}
     assert os.path.exists(os.path.join(tree, "stats_sub", "pacs", "cartoon_mean_std.npz"))
+    assert os.path.exists(os.path.join(tree, "stats_sub", "pacs", "photo_q8_scales.json"))

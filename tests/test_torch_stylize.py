@@ -6,7 +6,10 @@ Tolerances: float32 rtol=1e-4, atol=1e-5 (goldens and the JAX engine: same
 math, sums in another order); bfloat16 port vs the bfloat16 JAX ``ref``
 engine: MAE <= 1e-3, the BASELINE bar (bf16 rounds at other places, e.g. the
 fused AdaIN rounds once where the JAX ops round twice); uint8 outputs within
-one level. Where a bar is set for images in [0, 1], the random decoder's last
+one level. The int8 engines: the port's ``int8-static`` vs JAX's with the same
+scales at MAE <= 1e-3 (conv0's three-term float32 sum can round differently
+before ``quantize_static`` and flip an int8 step, and AdaIN rounds as above);
+the port's ``int8-fused`` equals its ``int8-static`` bit for bit. Where a bar is set for images in [0, 1], the random decoder's last
 conv is rescaled so that the outputs spread over that range (``_spread``).
 """
 import os
@@ -125,7 +128,54 @@ def test_style_stats_of_matches_jax(rng, params):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
-@pytest.mark.parametrize("kw", [dict(engine="int8-static"), dict(output_size=96)])
+def test_int8_engine_style_stats_of_uses_ref_encoder(rng, params):
+    """An int8 engine keeps no bf16 executor, yet takes single-image style
+    statistics through the ``ref`` encoder, as the JAX engine does."""
+    image = torch.from_numpy(rng.random((1, 32, 32, 3), np.float32))
+    ref = StylizeEngine(*params, dtype=torch.bfloat16, device="cpu").style_stats_of(image)
+    e = StylizeEngine(*params, dtype=torch.bfloat16, device="cpu", engine="int8-fused")
+    assert e.enc is None and e.dec is None
+    for a, b in zip(e.style_stats_of(image), ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw",[dict(engine="packed"), dict(output_size=96)])
 def test_unported_options_raise(params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StylizeEngine(*params, dtype=torch.float32, device="cpu", **kw)
+
+
+def _int8_case(rng, params, size):
+    enc, dec = params[0], _spread(params[1])
+    images = rng.random((2, size, size, 3), np.float32)
+    s_means, s_stds = _banks(rng, 2)
+    return enc, dec, images, s_means, s_stds
+
+
+def test_int8_static_matches_jax_engine(rng, params):
+    """The same scales dict (the JAX engine's calibration) in both engines."""
+    enc, dec, images, s_means, s_stds = _int8_case(rng, params, 32)
+    jax_engine = JaxEngine(enc, dec, dtype=jnp.bfloat16, engine="int8-static")
+    ref = np.asarray(jax_engine.stylize_multi(jnp.asarray(images), s_means, s_stds, 1.0))
+    ours = StylizeEngine(enc, dec, dtype=torch.bfloat16, device="cpu", engine="int8-static",
+                         scales=jax_engine.scales)
+    got = ours.stylize_multi(torch.from_numpy(images), s_means, s_stds, 1.0)
+    assert got.shape == (2, 2, 32, 32, 3) and bool(got.isfinite().all())
+    assert ref.max() - ref.min() >= 0.5, (ref.min(), ref.max())
+    mae = float(np.mean(np.abs(got.numpy() - ref)))
+    assert mae <= 1e-3, mae
+
+
+@pytest.mark.parametrize("size", [32, 36])
+def test_int8_fused_equals_int8_static(rng, params, size):
+    """Self-calibrated on the first batch, as the engines do without scales;
+    36 px gives odd pool sizes (18 -> 9 -> 5) in the int8 encoder."""
+    enc, dec, images, s_means, s_stds = _int8_case(rng, params, size)
+    outs = {}
+    for engine in ("int8-static", "int8-fused"):
+        e = StylizeEngine(enc, dec, dtype=torch.bfloat16, device="cpu", engine=engine)
+        outs[engine] = e.stylize_multi(torch.from_numpy(images), s_means, s_stds, 1.0)
+        assert e.scales is not None and not e._needs_calibration
+    out = -(-size // 8) * 8  # ceil-mode pools: 36 px decodes to 40 px, as in ccst_tpu
+    assert outs["int8-static"].shape == (2, 2, out, out, 3)
+    assert torch.equal(outs["int8-static"], outs["int8-fused"])
