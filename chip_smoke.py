@@ -13,8 +13,13 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
   3. each kernel against its plain PyTorch version on the card at the shapes
      of the 512 px path, with the median time of both: K3 conv, K4 AdaIN, K5
      moments with their tolerances; K0 int8 conv, K1 fused level-1 encoder and
-     K2 fused level-1 decoder bit for bit, with K0's int8 TOPS; then ragged
-     shapes (odd planes, Cout = 12, one-row tiles);
+     K2 fused level-1 decoder bit for bit, with K0's int8 TOPS; the int8 A/B
+     kernels bit for bit at the harnesses' full-width shapes: B1 tiled GEMM
+     (int8 -> int32, int8 -> float32, bf16 -> float32, M = 2^18, the five
+     (K, N) of the sweep, cuBLAS timed beside it for comparison only), B2
+     direct and Winograd conv (full, dots, tf) at (8, 256, 256, 256 -> 256),
+     B3 fused pool1 + conv2_1 (F9, F3) at (128, 256, 256, 256); then ragged
+     shapes (odd planes, Cout = 12, one-row tiles, M and N off the tiles);
   4. the main paths through the CLI entry point, in this process, each with
      every launch count zeroed before it and read after it: ``style-bank``
      for four synthetic PACS domains, ``stylize --target photo --mode
@@ -27,7 +32,11 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      composition (MAE <= 1e-3), against ``int8-static`` (bit for bit) and
      against ``ref`` (PSNR > 20 dB); ``apply_decoder_q8s_fused`` (K2) against
      ``apply_decoder_q8s`` (bit for bit); device-only ``stylize_multi`` times
-     of the three engines.
+     of the three engines;
+  6. the three int8 A/B harnesses (``ccst_tpu_torch.benchmarks.int8_mm``,
+     ``winograd_ab``, ``fused_pool_conv_ab --batch 32``) through their
+     ``main()`` in this process, each with every launch count zeroed before it
+     and read after it; the counts must be the ones its arguments imply.
 
 The random decoder's last conv is rescaled (x12, bias +0.5) so that stylized
 outputs spread over [0, 1] as real ones do: the MAE bar is then 0.1% of the
@@ -40,8 +49,9 @@ runs the same phases on a larger synthetic tree and batch, for the device
 rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
 The line before the last is a JSON object with one entry per kernel, whose
-``launches`` are the phase-4 main paths' counts only (K2 is on none of them);
-the last line is ``{"ok": true, "device": {...}}``.
+``launches`` are the phase-4 main paths' counts (K2 is on none of them) and,
+for B1-B3, the phase-6 harnesses' counts; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 import argparse
 import contextlib
@@ -93,6 +103,21 @@ K0_EDGE = [
 # ragged K1 / K2 planes (packed pixels): not multiples of the 8 x 16 tile,
 # 18 rows (which ccst_tpu's row-tile rule rejects), one row
 LEVEL1_EDGE = [(1, 18, 10), (2, 7, 33), (1, 1, 3)]
+# B1 at the sweep of benchmarks/pallas_int8_mxu.py: (M, K, N); ragged: M not
+# a multiple of the 128-row tile, N not of the 128-column tile
+B1_M = 1 << 18
+B1_SHAPES = [(256, 256), (512, 512), (2304, 256), (576, 256), (1152, 128)]
+B1_MAIN = [B1_M, 2304, 256]
+B1_EDGE = [(1000, 48, 24), (77, 2304, 136)]
+# B2 at the packed conv1_2 shape of benchmarks/winograd_ab.py; ragged: odd
+# planes (partial 2x2 tiles), one row
+B2_MAIN = (8, 256, 256, 256, 256)
+B2_EDGE = [(1, 17, 37, 64, 64), (2, 9, 20, 128, 64), (1, 1, 3, 64, 128)]
+# B3 at benchmarks/fused_pool_conv_ab.py's B = 128; ragged: odd planes, 2x2
+B3_MAIN = (128, 256, 256)
+B3_EDGE = [(1, 7, 13), (2, 2, 2), (3, 33, 5)]
+HARNESS_REPS = ["--reps", "5", "--runs", "3"]
+B3_HARNESS_BATCH = 32
 
 
 def fail(msg: str) -> None:
@@ -197,7 +222,9 @@ def int8_layer(torch, gen, cin, cout, requant, dev):
 
 
 def int8_input(torch, gen, shape, dev):
-    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+    """Seeded int8 in [-127, 127], drawn where ``gen`` lives."""
+    x = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device=gen.device)
+    return x.to(dev)
 
 
 def check_int8_kernels(torch, dev, gen, results):
@@ -280,6 +307,131 @@ def check_int8_kernels(torch, dev, gen, results):
     print("edge shapes: K0, K1, K2 equal their plain versions")
 
 
+def check_ab_kernels(torch, dev, cpu_gen, results):
+    """Phase 3, A/B part: B1, B2 (direct, Winograd in its three modes) and B3
+    (F9, F3) bit for bit against their plain versions at the harnesses'
+    full-width shapes, with times; then ragged shapes."""
+    import numpy as np
+
+    from ccst_tpu_torch import benchmarks as bm
+    from ccst_tpu_torch.benchmarks.int8_mm import VARIANTS
+    from ccst_tpu_torch.kernels import winograd as wg
+    from ccst_tpu_torch.kernels.int8_mm import prepare_mm_weight, tiled_mm, tiled_mm_reference
+    from ccst_tpu_torch.kernels.pool_conv import pool_conv_fused, pool_conv_reference
+
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(1)  # the big inputs are drawn on the card
+    for m, k, n in [*((B1_M, k, n) for k, n in B1_SHAPES), *B1_EDGE]:
+        xi = int8_input(torch, gen, (m, k), dev)
+        wi = int8_input(torch, gen, (k, n), dev)
+        for name, in_dtype, out_dtype in VARIANTS:
+            x, w = xi.to(in_dtype), wi.to(in_dtype)
+            mw = prepare_mm_weight(w)
+            got = tiled_mm(x, mw, out_dtype)
+            torch.cuda.synchronize()
+            check_equal(torch, f"B1 {name} {(m, k, n)}", got, tiled_mm_reference(x, w, out_dtype))
+            if m != B1_M:
+                continue
+            ms = time_ms(torch, lambda: tiled_mm(x, mw, out_dtype))
+            plain_ms = time_ms(torch, lambda: tiled_mm_reference(x, w, out_dtype), reps=2, runs=3)
+            tops = 2 * m * k * n / (ms * 1e-3) / 1e12
+            row = dict(shape=[m, k, n], variant=name, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       tops=tops, peak_share=tops / (bm.BF16_PEAK_TFLOPS if name == "bf16"
+                                                     else bm.INT8_PEAK_TOPS))
+            line = (f"B1 tiled_mm {name} {(m, k, n)}: bit-exact | kernel {ms:.4f} ms "
+                    f"({tops:.1f} TOPS, {100 * row['peak_share']:.1f}% of peak) "
+                    f"plain f64 {plain_ms:.4f} ms")
+            if name != "i8f32":  # cuBLAS, for comparison only: not the port
+                lib = (lambda: torch._int_mm(x, w)) if name == "i8i32" else (lambda: torch.matmul(x, w))
+                row["cublas_ms"] = time_ms(torch, lib)
+                line += f" cuBLAS {row['cublas_ms']:.4f} ms"
+            results["B1"].append(row)
+            print(line)
+
+    for (n, h, w, cin, cout) in (B2_MAIN, *B2_EDGE):
+        x = int8_input(torch, gen, (n, h, w, cin), dev)
+        wq = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+        uq, _ = wg.wino_weights(wq)
+        k_dir = (rng.uniform(0.5, 1.5, cout) * 40 / (127 * 73 * math.sqrt(9 * cin))).astype(np.float32)
+        k_wino = (rng.uniform(0.5, 1.5, cout) * 40 / (127 * 73 * math.sqrt(16 * cin))).astype(np.float32)
+        kb = (rng.standard_normal(cout) * 10 + 40).astype(np.float32)
+        c = wg.make_wino_conv(wq, uq, k_dir, k_wino, kb, dev)
+        cases = [("B2-direct", "direct", lambda: wg.conv_direct(x, c),
+                  lambda: wg.conv_direct_reference(x, c))]
+        cases += [("B2-wino", mode, lambda m=mode: wg.conv_wino(x, c, m),
+                   lambda m=mode: wg.conv_wino_reference(x, c, m))
+                  for mode in wg.MODES if mode != "tf" or cout <= cin]
+        for kid, mode, kernel, plain in cases:
+            got = kernel()
+            torch.cuda.synchronize()
+            check_equal(torch, f"{kid} {mode} {(n, h, w, cin, cout)}", got, plain())
+            if (n, h, w, cin, cout) != B2_MAIN:
+                continue
+            if mode in ("direct", "full") and len(torch.unique(got)) < 20:
+                fail(f"{kid} {mode}: outputs do not spread, the comparison would say little")
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, plain, reps=2, runs=3)
+            tops = 2 * n * h * w * 9 * cin * cout / (ms * 1e-3) / 1e12
+            results[kid].append(dict(shape=[n, h, w, cin, cout], mode=mode, max_abs_err=0.0,
+                                     ms=ms, plain_ms=plain_ms, tops=tops))
+            print(f"{kid} {mode} {(n, h, w, cin, cout)}: bit-exact | kernel {ms:.4f} ms "
+                  f"({tops:.1f} direct-conv TOPS) plain f64 {plain_ms:.4f} ms")
+
+    for (n, hb, wb) in (B3_MAIN, *B3_EDGE):
+        xp = torch.randint(-5, 120, (n, hb, wb, 256), generator=gen, dtype=torch.int8, device=dev)
+        q = int8_layer(torch, cpu_gen, 64, 128, True, dev)
+        plain = lambda: torch.cat([pool_conv_reference(xp[i:i + 16], q) for i in range(0, n, 16)])
+        want = plain()
+        for tag, cat in (("F9", False), ("F3", True)):
+            got = pool_conv_fused(xp, q, cat)
+            torch.cuda.synchronize()
+            check_equal(torch, f"B3 {tag} {(n, hb, wb, 256)}", got, want)
+            if (n, hb, wb) != B3_MAIN:
+                continue
+            if len(torch.unique(got)) < 20:
+                fail(f"B3 {tag}: outputs do not spread, the comparison would say little")
+            ms = time_ms(torch, lambda c=cat: pool_conv_fused(xp, q, c))
+            plain_ms = time_ms(torch, plain, reps=1, runs=3)
+            tops = 2 * n * hb * wb * 576 * 128 / (ms * 1e-3) / 1e12
+            results["B3"].append(dict(shape=[n, hb, wb, 256], cat=cat, max_abs_err=0.0, ms=ms,
+                                      plain_ms=plain_ms, tops=tops))
+            print(f"B3 pool_conv {tag} {(n, hb, wb, 256)}: bit-exact | kernel {ms:.4f} ms "
+                  f"({tops:.1f} TOPS) plain (phase max + f64 conv) {plain_ms:.4f} ms")
+        del want
+    torch.cuda.synchronize()
+    print("edge shapes: B1, B2, B3 equal their plain versions")
+
+
+def run_harnesses(torch, counters):
+    """Phase 6: the three int8 A/B harnesses in this process, each with every
+    launch count zeroed before it and read after it; the counts must be the
+    ones its arguments imply. Returns the B kernels' counts."""
+    from ccst_tpu_torch.benchmarks import fused_pool_conv_ab, int8_mm, winograd_ab
+
+    ids = {"tiled_mm": "B1", "conv_direct": "B2-direct", "conv_wino": "B2-wino",
+           "pool_conv_fused": "B3", "qconv3x3_s8": "K0"}
+    launches = {}
+    for mod, argv in ((int8_mm, HARNESS_REPS), (winograd_ab, HARNESS_REPS),
+                      (fused_pool_conv_ab, ["--batch", str(B3_HARNESS_BATCH), *HARNESS_REPS])):
+        name = mod.__name__.rsplit(".", 1)[1]
+        expect = {k: 0 for k in counters}
+        expect.update({ids[fn]: count for fn, count in mod.planned_launches(mod.parse_args(argv)).items()})
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        mod.main(argv)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items()}
+        if got != expect:
+            fail(f"harness {name}: kernel launches {got}, expected {expect}")
+        print(f"harness {name} ({time.perf_counter() - t0:.1f} s): kernel launches "
+              f"{ {k: v for k, v in got.items() if v} } (as expected)")
+        for k, v in got.items():
+            if k.startswith("B"):
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--images-per-domain", type=int, default=8)
@@ -301,6 +453,9 @@ def main() -> int:
 
     from ccst_tpu_torch.kernels import _build
     from ccst_tpu_torch.kernels.adain import fused_adain, fused_adain_reference
+    from ccst_tpu_torch.kernels.int8_mm import tiled_mm
+    from ccst_tpu_torch.kernels.pool_conv import pool_conv_fused
+    from ccst_tpu_torch.kernels.winograd import conv_direct, conv_wino
     from ccst_tpu_torch.kernels.conv import (
         prepare_conv,
         reflect_conv3x3,
@@ -335,7 +490,8 @@ def main() -> int:
 
     # -- 3. kernels vs plain versions --------------------------------------
     gen = torch.Generator().manual_seed(0)
-    results = {"K3": [], "K4": [], "K5": [], "K0": [], "K1": [], "K2": []}
+    results = {k: [] for k in ("K3", "K4", "K5", "K0", "K1", "K2", "B1", "B2-direct",
+                               "B2-wino", "B3")}
 
     conv_shapes = [
         (4, 512, 512, 3, 64), (4, 512, 512, 64, 64), (4, 128, 128, 256, 256),
@@ -425,6 +581,7 @@ def main() -> int:
     print("edge shapes: K3, K4, K5 agree with their plain versions")
 
     check_int8_kernels(torch, dev, gen, results)
+    check_ab_kernels(torch, dev, gen, results)
 
     # -- 4. the main paths through the CLI ---------------------------------
     import numpy as np
@@ -435,7 +592,9 @@ def main() -> int:
     from ccst_tpu_torch.pipeline.stylize import StylizeEngine
 
     counters = {"K3": reflect_conv3x3, "K4": fused_adain, "K5": channel_moments,
-                "K0": qconv3x3_s8, "K1": encoder_level1, "K2": decoder_level1}
+                "K0": qconv3x3_s8, "K1": encoder_level1, "K2": decoder_level1,
+                "B1": tiled_mm, "B2-direct": conv_direct, "B2-wino": conv_wino,
+                "B3": pool_conv_fused}
     launches = {k: 0 for k in counters}
     with tempfile.TemporaryDirectory(prefix="ccst_smoke_") as root:
         t0 = time.perf_counter()
@@ -670,6 +829,10 @@ def main() -> int:
               f"{ms:.2f} ms/batch = {rates[name]['img_s']:.1f} stylized img/s")
     print("device rates: " + json.dumps({"batch": batch, **rates}))
 
+    # -- 6. the int8 A/B harnesses -----------------------------------------
+    for k, v in run_harnesses(torch, counters).items():
+        launches[k] = v
+
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
                "ccst_tpu/kernels/conv_pallas.py:102", [4, 512, 512, 64, 64], "stylize ref"),
@@ -684,12 +847,26 @@ def main() -> int:
         "K2": ("decoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
                "ccst_tpu/kernels/level1_pallas.py:380", [4, 256, 256, 64],
                "none: no engine decodes through it (as in ccst_tpu)"),
+        "B1": ("tiled_mm", "cuda", "ccst_tpu_torch/csrc/int8_mm.cu",
+               "benchmarks/pallas_int8_mxu.py:22", B1_MAIN,
+               "python -m ccst_tpu_torch.benchmarks.int8_mm"),
+        "B2-direct": ("conv_direct", "cuda", "ccst_tpu_torch/csrc/winograd_s8.cu",
+                      "benchmarks/winograd_ab.py:73", list(B2_MAIN),
+                      "python -m ccst_tpu_torch.benchmarks.winograd_ab"),
+        "B2-wino": ("conv_wino", "cuda", "ccst_tpu_torch/csrc/winograd_s8.cu",
+                    "benchmarks/winograd_ab.py:90", list(B2_MAIN),
+                    "python -m ccst_tpu_torch.benchmarks.winograd_ab"),
+        "B3": ("pool_conv_fused", "cuda", "ccst_tpu_torch/csrc/pool_conv_s8.cu",
+               "benchmarks/fused_pool_conv_ab.py:123", [*B3_MAIN, 256],
+               f"python -m ccst_tpu_torch.benchmarks.fused_pool_conv_ab --batch {B3_HARNESS_BATCH}"),
     }
     kernels = []
     for k, (name, route, source, replaces, shape, path) in sources.items():
         rows = results[k]
         main_row = next(r for r in rows if r["shape"] == shape
-                        and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16")
+                        and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16"
+                        and r.get("variant", "i8i32") == "i8i32"
+                        and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False))
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "path": path,
@@ -699,6 +876,7 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "timed_shape": shape,
             **({"cudnn_bf16_ms": main_row["cudnn_bf16_ms"]} if "cudnn_bf16_ms" in main_row else {}),
             **({"tops": main_row["tops"]} if "tops" in main_row else {}),
+            **({"cublas_ms": main_row["cublas_ms"]} if "cublas_ms" in main_row else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -168,6 +168,7 @@ def test_cli_never_loads_jax(tree):
     code = (
         "import sys, json\n"
         "from ccst_tpu_torch.cli import main\n"
+        "from ccst_tpu_torch.benchmarks import fused_pool_conv_ab, int8_mm, winograd_ab\n"
         f"rc = main({['style-bank', *common]!r})\n"
         f"rc += main({['calibrate', *common, '--target', 'photo', '--engine', 'int8-static']!r})\n"
         "print(json.dumps({'rc': rc, 'jax': 'jax' in sys.modules}))\n"

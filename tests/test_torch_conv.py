@@ -139,3 +139,25 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_package_data_ships_every_source_and_header():
+    """An installed package builds from its own csrc/: every .cu and every
+    ``#include "..."`` they name is covered by pyproject's package data."""
+    import fnmatch
+    import os
+    import re
+    import tomllib
+
+    from ccst_tpu_torch.kernels import _build
+
+    with open(os.path.join(os.path.dirname(_build._PKG), "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["ccst_tpu_torch"]
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    needed = {f"csrc/{s.name}" for s in sources} | {
+        f"csrc/{name}" for s in sources for name in re.findall(r'#include "([^"]+)"', s.read_text())
+    }
+    assert len(sources) >= 6 and any(n.endswith(".cuh") for n in needed)
+    for rel in needed:
+        assert (_build._PKG / rel).exists(), rel
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} is not in package-data {globs}"

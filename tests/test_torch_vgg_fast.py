@@ -160,3 +160,36 @@ def test_scales_file_round_trips_across_packages(tmp_path, rng, params, writer):
         assert load(path, expect_fingerprint=fp) == scales
         with pytest.raises(ValueError, match="different weights"):
             load(path, expect_fingerprint=fp + "0")
+
+
+def test_int8_static_matches_golden(params):
+    """The drift anchor of tests/test_golden.py::test_stylize_golden_int8_static
+    through the port: calibrate on the float32 weights and the
+    ``default_rng(11)`` inputs, int8-static encode -> AdaIN -> decode at 64 px,
+    held to ``tests/goldens/stylize_64px_int8_static.npz`` with the same bar
+    (mean |err| / span < 2e-3). The fused path equals the unfused one bit for
+    bit."""
+    import os
+
+    from ccst_tpu_torch.ops.adain import adain_from_stats
+
+    rng = np.random.default_rng(11)
+    images = torch.from_numpy(rng.random((1, 64, 64, 3), np.float32))
+    s_mean = rng.standard_normal(512).astype(np.float32) * 0.05
+    s_std = rng.random(512).astype(np.float32) * 0.1 + 0.02
+    enc, dec = (tf.cast_params(p, torch.float32) for p in params)
+    scales = tf.calibrate_scales(enc, dec, images, [(s_mean, s_std)])
+    eq = tf.prepare_encoder_q8s(enc, scales, torch.bfloat16, "cpu")
+    dq = tf.prepare_decoder_q8s(dec, scales, torch.bfloat16, "cpu")
+    out = tf.apply_decoder_q8s(dq, adain_from_stats(tf.apply_encoder_q8s(eq, images),
+                                                    s_mean, s_std)).float()
+    outf = tf.apply_decoder_q8s_fused(
+        dq, adain_from_stats(tf.apply_encoder_q8s_fused(eq, images), s_mean, s_std)).float()
+    assert torch.equal(out, outf)
+
+    path = os.path.join(os.path.dirname(__file__), "goldens", "stylize_64px_int8_static.npz")
+    golden = np.load(path)["out"].astype(np.float32)
+    assert out.shape == golden.shape
+    span = float(golden.max() - golden.min()) or 1.0
+    err = np.abs(out.numpy() - golden)
+    assert err.mean() / span < 2e-3, f"mean drift {err.mean() / span:.2e}"
