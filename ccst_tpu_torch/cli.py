@@ -60,7 +60,7 @@ def _load_engine_params(args):
 
 
 def cmd_style_bank(args) -> int:
-    from ccst_tpu.config import StylizeConfig, dataset_spec
+    from ccst_tpu_torch.config import StylizeConfig, dataset_spec
     from ccst_tpu_torch.pipeline.style_bank import compute_style_bank
 
     cfg = _dataclass_from_args(StylizeConfig, args)
@@ -104,7 +104,7 @@ def cmd_calibrate(args) -> int:
     """Compute and write the int8 engines' static activation scales (the
     first ``--max-images`` train-list images and the style banks,
     ``run_calibration``)."""
-    from ccst_tpu.config import StylizeConfig
+    from ccst_tpu_torch.config import StylizeConfig
     from ccst_tpu_torch.pipeline.style_bank import torch_dtype
     from ccst_tpu_torch.pipeline.stylize import INT8_ENGINES, StylizeEngine, run_calibration
 
@@ -122,7 +122,7 @@ def cmd_calibrate(args) -> int:
 
 
 def cmd_stylize(args) -> int:
-    from ccst_tpu.config import StylizeConfig
+    from ccst_tpu_torch.config import StylizeConfig
     from ccst_tpu_torch.pipeline.style_bank import torch_dtype
     from ccst_tpu_torch.pipeline.stylize import (
         StylizeEngine,
@@ -155,7 +155,7 @@ def cmd_stylize(args) -> int:
 
 
 def main(argv: Optional[list] = None) -> int:
-    from ccst_tpu.config import StylizeConfig
+    from ccst_tpu_torch.config import StylizeConfig
 
     parser = argparse.ArgumentParser(prog="ccst-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)

@@ -11,55 +11,142 @@
 //
 // What bounds it on the H100: at 512 px every layer has K = 9*Cin = 576..4608
 // (the packed conv1_1 has 108), so each input byte feeds hundreds of MACs and
-// the convs are tensor-core bound; the 256->12 packed dconv1_1 writes a
-// narrow output and fills 12 of 64 output columns of its tile.
+// the convs are tensor-core bound; the 256->12 packed dconv1_1 is bound by
+// reading its 256-channel input.
 //
-// Design: an implicit GEMM, M = N*H*W output pixels, N = Cout, K = 9*Cin in
-// HWIO order (k = (dy*3 + dx)*Cin + ci), on int8 tensor cores
-// (mma.sync.m16n8k32, see s8_mma.cuh). A block computes a 128 x 64 tile with
-// eight warps of 32 x 32. The padded input rows are gathered straight into
-// shared memory by index arithmetic (mirrored or clamped), so the padded tensor
-// never exists in device memory. Two shared-memory stages: cp.async fetches
-// stage k+1 while the tensor cores consume stage k. Weights come pre-packed as
-// a (Np, Kp) output-channel-major matrix (k contiguous), zero padded to 64
-// rows and 64 columns, so the B tile needs no bounds checks; Cout = 12 and
-// K = 108 are covered by that padding. When Cin is not a multiple of 64 (the
-// packed conv1_1, Cin = 12) the A tile is gathered 4 bytes at a time. The
-// epilogue stages the int32 tile in shared memory and writes 8 channels per
-// store. wgmma/TMA is later work.
+// Design: the core of reflect_conv3x3.cu (conv_igemm_sm90.cuh), in bytes the
+// same kernel: wgmma.mma_async m64nNk32 s8 x s8 -> s32, both operands K-major
+// (the only layout 8-bit wgmma takes: NHWC pixels are K-major per tap, the
+// packed weights K-major per output channel); a halo tile gathered once per
+// 128-channel chunk with the padded index mirrored or clamped; weights as
+// pre-packed stage tiles fetched by cp.async.bulk + mbarrier; N = 128, 64, or
+// 16 for the few-channel output (the packed dconv1_1, Cout = 12), whose nine
+// taps share one stage. The epilogue runs from the accumulator registers with
+// the exact float chain of s8_mma.cuh and stores 16 bytes at a time (int8: 16
+// channels after a quad transpose and a byte permute; bf16: 8 channels).
+// Integer sums are order-free, so the result equals the plain version bit for
+// bit.
+//
+// Cin not a multiple of 16 (the packed conv1_1, Cin = 12, K = 108) cannot be
+// copied 16 bytes at a time: that shape class keeps the earlier 4-byte-gather
+// kernel on mma.sync.m16n8k32 below, picked by Cin alone, with its own
+// (Np, Kp) weight matrix.
+#include "conv_igemm_sm90.cuh"
 #include "s8_mma.cuh"
 
 namespace {
 
 using namespace ccst_s8;
+using namespace ccst_igemm;
 
-constexpr int BM = 128;      // output pixels per block
-constexpr int BN = 64;       // output channels per block
-constexpr int BK = 64;       // reduction depth (bytes) per stage
-constexpr int THREADS = 256; // 8 warps: 4 along M x 2 along N, 32 x 32 each
-constexpr int SPAD = 16;     // bytes of padding per smem row (80-byte rows: no bank conflicts)
-constexpr int CPAD = 4;      // int32 padding per epilogue row
+// OUT: 0 -> int8 (requant), 1 -> bf16, 2 -> float32 (dequant).
+template <int BN, int TPS, int OUT>
+__global__ void __launch_bounds__(ccst_igemm::THREADS, min_blocks(BN))
+qconv3x3_s8_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ wp,
+                         const float* __restrict__ kmul, const float* __restrict__ kadd,
+                         void* __restrict__ yv, int relu, const ConvGeom g) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float sk[BN], skb[BN];
+  int n, y0, x0, ntile;
+  block_tile(g, n, y0, x0, ntile);
+  const int n0 = ntile * BN;
+  if (threadIdx.x < BN) {
+    const bool in = n0 + threadIdx.x < g.Cout;
+    sk[threadIdx.x] = in ? kmul[n0 + threadIdx.x] : 0.0f;
+    skb[threadIdx.x] = in ? kadd[n0 + threadIdx.x] : 0.0f;
+  }
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  conv_mainloop<false, BN, TPS>(acc, x, wp, g, n, y0, x0, ntile, smem);
+
+  const int t = threadIdx.x & 3;
+  const float lo = relu ? 0.0f : -127.0f;
+  // the float of accumulator a at tile column 8 j + 2 t + e, before requant
+  auto value = [&](int j, int e, int a) {
+    const int c = 8 * j + 2 * t + e;
+    const float v = dequant(a, sk[c], skb[c]);
+    return (OUT != 0 && relu) ? fmaxf(v, 0.0f) : v;
+  };
+
+  if constexpr (OUT == 1) {
+    store_tile_bf16<BN>(acc, value, static_cast<__nv_bfloat16*>(yv), g, n, y0, x0, n0);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long px = out_pixel(g, n, y0, x0, h);
+      const long long base = (px < 0 ? 0 : px) * g.Cout + n0;
+      if constexpr (OUT == 0 && BN >= 64) {
+        if ((g.Cout & 15) == 0) {
+          // 64 channels per round: lane t of a quad ends with the 16 channels
+          // of groups 2t and 2t + 1
+#pragma unroll
+          for (int jj = 0; jj < BN / 64; ++jj) {
+            uint32_t v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              uint32_t b[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int j = 8 * jj + 2 * q + (i >> 1);
+                b[i] = static_cast<uint8_t>(requant(value(j, i & 1, acc[4 * j + 2 * h + (i & 1)]), lo));
+              }
+              v[q] = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24);
+            }
+            quad_transpose(v, t);
+            const int col = 64 * jj + 16 * t;
+            if (px >= 0 && n0 + col < g.Cout)
+              *reinterpret_cast<uint4*>(static_cast<int8_t*>(yv) + base + col) =
+                  make_uint4(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410),
+                             __byte_perm(v[0], v[1], 0x7632), __byte_perm(v[2], v[3], 0x7632));
+          }
+          continue;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const float f = value(j, e, acc[4 * j + 2 * h + e]);
+          if (px < 0 || n0 + col >= g.Cout) continue;
+          if constexpr (OUT == 0)
+            static_cast<int8_t*>(yv)[base + col] = requant(f, lo);
+          else
+            static_cast<float*>(yv)[base + col] = f;
+        }
+    }
+  }
+}
+
+// ---- Cin % 16 != 0 (Cin % 4 == 0): 4-byte gather, mma.sync tiles ----------
+
+constexpr int BM = 128;       // output pixels per block
+constexpr int BNG = 64;       // output channels per block
+constexpr int BK = 64;        // reduction depth (bytes) per stage
+constexpr int GTHREADS = 256; // 8 warps: 4 along M x 2 along N, 32 x 32 each
+constexpr int SPAD = 16;      // bytes of padding per smem row (80-byte rows: no bank conflicts)
+constexpr int CPAD = 4;       // int32 padding per epilogue row
 
 struct SmemAB {
-  int8_t a[2][BM][BK + SPAD];
-  int8_t b[2][BN][BK + SPAD];
+  int8_t a[BM][BK + SPAD];
+  int8_t b[BNG][BK + SPAD];
 };
 
 union Smem {
   SmemAB ab;
-  int c[BM][BN + CPAD];  // epilogue staging, reuses the operand buffers
+  int c[BM][BNG + CPAD];  // epilogue staging, reuses the operand buffers
 };
 
-// OUT: 0 -> int8 (requant), 1 -> bf16, 2 -> float32 (dequant).
-// VEC: Cin % BK == 0, so a BK slice of K lies inside one tap and is 16-byte
-// aligned; the A tile is fetched with cp.async. Otherwise Cin % 4 == 0 and the
-// tile is gathered in 4-byte words.
-template <bool VEC, int OUT>
-__global__ void __launch_bounds__(THREADS)
-qconv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
-                   const float* __restrict__ kmul, const float* __restrict__ kadd,
-                   void* __restrict__ yv, int N, int H, int W, int Cin, int Cout, int Kp,
-                   int reflect, int relu) {
+// M = N*H*W output pixels, N = Cout, K = 9*Cin in HWIO order; wk is the
+// (Np, Kp) output-channel-major weight matrix, zero padded to 64 x 64.
+template <int OUT>
+__global__ void __launch_bounds__(GTHREADS)
+qconv3x3_s8_gather_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
+                          const float* __restrict__ kmul, const float* __restrict__ kadd,
+                          void* __restrict__ yv, int N, int H, int W, int Cin, int Cout, int Kp,
+                          int reflect, int relu) {
   __shared__ __align__(128) Smem sm;
 
   const int tid = threadIdx.x;
@@ -71,67 +158,16 @@ qconv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
   const long long HW = (long long)H * W;
   const long long M = (long long)N * HW;
   const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int K = 9 * Cin;
-  const int KT = Kp / BK;
+  const int n0 = blockIdx.y * BNG;
 
-  auto pad_h = [&](int i) { return reflect ? reflect_index(i, H) : edge_index(i, H); };
-  auto pad_w = [&](int i) { return reflect ? reflect_index(i, W) : edge_index(i, W); };
-
-  // VEC path: each thread owns two A rows (pixels) and one 16-byte chunk column
-  int a_n[2], a_h[2], a_w[2];
-  bool a_ok[2];
-  const int a_chunk = tid & 3;  // 4 chunks of 16 bytes per BK row
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (tid >> 2) + i * (THREADS / 4);
-    long long m = m0 + row;
-    a_ok[i] = m < M;
-    long long mm = a_ok[i] ? m : 0;
-    a_n[i] = (int)(mm / HW);
-    int rem = (int)(mm - (long long)a_n[i] * HW);
-    a_h[i] = rem / W;
-    a_w[i] = rem - a_h[i] * W;
-  }
-  const int b_row = tid >> 2;  // BN rows x 4 chunks of 16 bytes
-  const int b_chunk = tid & 3;
-
-  auto load_stage = [&](int kt, int s) {
-    const int k0 = kt * BK;
-    cp_async16(&sm.ab.b[s][b_row][b_chunk * 16],
-               wk + (long long)(n0 + b_row) * Kp + k0 + b_chunk * 16, true);
-    if constexpr (VEC) {
-      const int tap = k0 / Cin;
-      const int ci0 = k0 - tap * Cin + a_chunk * 16;
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int hh = pad_h(a_h[i] + dy);
-        const int ww = pad_w(a_w[i] + dx);
-        const int8_t* src = x + (((long long)a_n[i] * H + hh) * W + ww) * Cin + ci0;
-        cp_async16(&sm.ab.a[s][(tid >> 2) + i * (THREADS / 4)][a_chunk * 16],
-                   a_ok[i] ? src : x, a_ok[i]);
-      }
-    } else {
-      for (int idx = tid; idx < BM * (BK / 4); idx += THREADS) {
-        const int row = idx / (BK / 4);
-        const int kk = (idx - row * (BK / 4)) * 4;
-        const int k = k0 + kk;
-        const long long m = m0 + row;
-        int v = 0;
-        if (m < M && k < K) {
-          const int n = (int)(m / HW);
-          const int rem = (int)(m - (long long)n * HW);
-          const int h = rem / W, w = rem - (rem / W) * W;
-          const int tap = k / Cin, ci = k - tap * Cin;
-          const int hh = pad_h(h + tap / 3 - 1);
-          const int ww = pad_w(w + tap % 3 - 1);
-          v = *reinterpret_cast<const int*>(x + (((long long)n * H + hh) * W + ww) * Cin + ci);
-        }
-        *reinterpret_cast<int*>(&sm.ab.a[s][row][kk]) = v;
-      }
-    }
-  };
+  // A gather: a thread owns one output pixel and half of the BK reduction
+  // bytes, four at a time (Cin % 4 == 0: a word never straddles a tap)
+  const int a_row = tid >> 1, a_kk = (tid & 1) * (BK / 2);
+  const long long a_m = m0 + a_row;
+  const bool a_ok = a_m < M;
+  const long long a_img = (a_ok ? a_m / HW : 0) * HW;  // first pixel of the image
+  const int a_rem = a_ok ? (int)(a_m - a_img) : 0;
+  const int a_h = a_rem / W, a_w = a_rem - a_h * W;
 
   int acc[2][4][4];
 #pragma unroll
@@ -141,13 +177,25 @@ qconv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < KT) load_stage(kt + 1, s ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();  // everything but the group just committed has landed
+  for (int k0 = 0; k0 < Kp; k0 += BK) {
+    for (int idx = tid; idx < BNG * (BK / 16); idx += GTHREADS) {
+      const int row = idx / (BK / 16), ch = (idx - row * (BK / 16)) * 16;
+      *reinterpret_cast<uint4*>(&sm.ab.b[row][ch]) =
+          *reinterpret_cast<const uint4*>(wk + (long long)(n0 + row) * Kp + k0 + ch);
+    }
+    int tap = (k0 + a_kk) / Cin, ci = (k0 + a_kk) - tap * Cin;
+#pragma unroll
+    for (int e = 0; e < BK / 8; ++e) {
+      int v = 0;
+      if (a_ok && tap < 9) {  // tap 9 is the zero padding of K
+        const int hh = pad_index(a_h + tap / 3 - 1, H, reflect);
+        const int ww = pad_index(a_w + tap % 3 - 1, W, reflect);
+        v = *reinterpret_cast<const int*>(x + (a_img + (long long)hh * W + ww) * Cin + ci);
+      }
+      *reinterpret_cast<int*>(&sm.ab.a[a_row][a_kk + 4 * e]) = v;
+      ci += 4;
+      if (ci == Cin) { ci = 0; ++tap; }
+    }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
@@ -155,16 +203,16 @@ qconv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = wm * 32 + i * 16 + g;
-        fa[i][0] = *reinterpret_cast<const int*>(&sm.ab.a[s][r][kk + 4 * t]);
-        fa[i][1] = *reinterpret_cast<const int*>(&sm.ab.a[s][r + 8][kk + 4 * t]);
-        fa[i][2] = *reinterpret_cast<const int*>(&sm.ab.a[s][r][kk + 16 + 4 * t]);
-        fa[i][3] = *reinterpret_cast<const int*>(&sm.ab.a[s][r + 8][kk + 16 + 4 * t]);
+        fa[i][0] = *reinterpret_cast<const int*>(&sm.ab.a[r][kk + 4 * t]);
+        fa[i][1] = *reinterpret_cast<const int*>(&sm.ab.a[r + 8][kk + 4 * t]);
+        fa[i][2] = *reinterpret_cast<const int*>(&sm.ab.a[r][kk + 16 + 4 * t]);
+        fa[i][3] = *reinterpret_cast<const int*>(&sm.ab.a[r + 8][kk + 16 + 4 * t]);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = wn * 32 + j * 8 + g;
-        fb[j][0] = *reinterpret_cast<const int*>(&sm.ab.b[s][c][kk + 4 * t]);
-        fb[j][1] = *reinterpret_cast<const int*>(&sm.ab.b[s][c][kk + 16 + 4 * t]);
+        fb[j][0] = *reinterpret_cast<const int*>(&sm.ab.b[c][kk + 4 * t]);
+        fb[j][1] = *reinterpret_cast<const int*>(&sm.ab.b[c][kk + 16 + 4 * t]);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -190,9 +238,9 @@ qconv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
   __syncthreads();
 
   const float lo = relu ? 0.0f : -127.0f;
-  for (int idx = tid; idx < BM * (BN / 8); idx += THREADS) {
-    const int row = idx / (BN / 8);
-    const int cg = (idx - row * (BN / 8)) * 8;
+  for (int idx = tid; idx < BM * (BNG / 8); idx += GTHREADS) {
+    const int row = idx / (BNG / 8);
+    const int cg = (idx - row * (BNG / 8)) * 8;
     const long long m = m0 + row;
     const int co = n0 + cg;
     if (m >= M || co >= Cout) continue;
@@ -230,41 +278,57 @@ qconv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wk,
   }
 }
 
+template <int BN, int TPS, int OUT>
+cudaError_t launch_wgmma(const void* x, const void* wp, const void* k, const void* kb, void* y,
+                         int N, int H, int W, int Cin, int Cout, int reflect, int relu,
+                         cudaStream_t st) {
+  const ConvGeom g = make_geom(N, H, W, Cin, Cout, BN, TPS, reflect);
+  return launch(qconv3x3_s8_wgmma_kernel<BN, TPS, OUT>, g, smem_bytes(g, BN, TPS), st,
+                static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wp),
+                static_cast<const float*>(k), static_cast<const float*>(kb), y, relu);
+}
+
 template <int OUT>
-void launch(dim3 grid, cudaStream_t st, bool vec, const int8_t* x, const int8_t* wk,
-            const float* k, const float* kb, void* y, int N, int H, int W, int Cin, int Cout,
-            int Kp, int reflect, int relu) {
-  if (vec)
-    qconv3x3_s8_kernel<true, OUT><<<grid, THREADS, 0, st>>>(x, wk, k, kb, y, N, H, W, Cin,
-                                                           Cout, Kp, reflect, relu);
-  else
-    qconv3x3_s8_kernel<false, OUT><<<grid, THREADS, 0, st>>>(x, wk, k, kb, y, N, H, W, Cin,
-                                                            Cout, Kp, reflect, relu);
+cudaError_t launch_out(const void* x, const void* wp, const void* k, const void* kb, void* y,
+                       int N, int H, int W, int Cin, int Cout, int reflect, int relu,
+                       cudaStream_t st) {
+  if (Cin % 16 == 0) {
+    const int bn = pick_bn(Cout, 16);
+    if (bn == 16)
+      return launch_wgmma<16, 9, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+    if (bn == 64)
+      return launch_wgmma<64, 1, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+    return launch_wgmma<128, 1, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+  }
+  const long long M = (long long)N * H * W;
+  const int Kp = (9 * Cin + BK - 1) / BK * BK, Np = (Cout + BNG - 1) / BNG * BNG;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(Np / BNG));
+  qconv3x3_s8_gather_kernel<OUT><<<grid, GTHREADS, 0, st>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wp),
+      static_cast<const float*>(k), static_cast<const float*>(kb), y, N, H, W, Cin, Cout, Kp,
+      reflect, relu);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). x: (N,H,W,Cin) int8, Cin % 4 == 0;
-// wk: (Np, Kp) int8, output-channel-major, Kp = roundup(9*Cin, 64),
-// Np = roundup(Cout, 64), zero padded; k, kb: (Cout,) f32; y: (N,H,W,Cout) of
-// int8 (out_kind 0), bf16 (1) or f32 (2). All contiguous. reflect: 1 reflect,
-// 0 edge padding. Launches on `stream` and returns cudaGetLastError().
-extern "C" int ccst_qconv3x3_s8(const void* x, const void* wk, const void* k, const void* kb,
-                                void* y, int N, int H, int W, int Cin, int Cout, int Kp, int Np,
-                                int reflect, int relu, int out_kind, void* stream) {
-  const long long M = (long long)N * H * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(Np / BN));
+// k, kb: (Cout,) f32; y: (N,H,W,Cout) of int8 (out_kind 0), bf16 (1) or f32
+// (2); all contiguous. wp: the packed weights of kernels/qconv.py::pack_weight:
+// for Cin % 16 == 0 the stage tiles [n tile][chunk][tap][8][BN][16 int8] with
+// BN = 16 (Cout <= 16), 64 (<= 64) or 128; otherwise the (roundup(Cout, 64),
+// roundup(9*Cin, 64)) matrix of the gather kernel. reflect: 1 reflect, 0 edge
+// padding. Launches on `stream` and returns the first CUDA error (0 on success).
+extern "C" int ccst_qconv3x3_s8(const void* x, const void* wp, const void* k, const void* kb,
+                                void* y, int N, int H, int W, int Cin, int Cout, int reflect,
+                                int relu, int out_kind, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const int8_t*>(x);
-  const auto* wb = static_cast<const int8_t*>(wk);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* kbf = static_cast<const float*>(kb);
-  const bool vec = Cin % BK == 0;
+  cudaError_t err;
   if (out_kind == 0)
-    launch<0>(grid, st, vec, xb, wb, kf, kbf, y, N, H, W, Cin, Cout, Kp, reflect, relu);
+    err = launch_out<0>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
   else if (out_kind == 1)
-    launch<1>(grid, st, vec, xb, wb, kf, kbf, y, N, H, W, Cin, Cout, Kp, reflect, relu);
+    err = launch_out<1>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
   else
-    launch<2>(grid, st, vec, xb, wb, kf, kbf, y, N, H, W, Cin, Cout, Kp, reflect, relu);
-  return static_cast<int>(cudaGetLastError());
+    err = launch_out<2>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+  return static_cast<int>(err);
 }

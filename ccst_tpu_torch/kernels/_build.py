@@ -30,10 +30,10 @@ NVCC_FLAGS = [
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: pointers and the stream as c_void_p, ints as c_int
 SIGNATURES = {
-    # x, wk, bias, y, N, H, W, Cin, Cout, Kp, Np, relu, stream
-    "ccst_reflect_conv3x3_bf16": [_P] * 4 + [_I] * 8 + [_P],
-    # x, wk, k, kb, y, N, H, W, Cin, Cout, Kp, Np, reflect, relu, out_kind, stream
-    "ccst_qconv3x3_s8": [_P] * 5 + [_I] * 10 + [_P],
+    # x, wp, bias, y, N, H, W, Cin, Cout, relu, stream
+    "ccst_reflect_conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    # x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, out_kind, stream
+    "ccst_qconv3x3_s8": [_P] * 5 + [_I] * 8 + [_P],
     # x, w1, k1, kb1, w2, k2, kb2, y, N, Hb, Wb, Cin, Kp1, Kp2, Cout, pool, stream
     "ccst_fused_two_conv_s8": [_P] * 8 + [_I] * 8 + [_P],
     # x, wt, y, M, N, K, Kp, Np, kind, stream

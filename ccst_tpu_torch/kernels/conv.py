@@ -2,13 +2,15 @@
 
 Replaces ``ccst_tpu/kernels/conv_pallas.py::reflect_conv3x3_fused`` (K3), the
 conv of every 3x3 layer in the VGG encoder and decoder. The kernel is
-``csrc/reflect_conv3x3.cu`` (an implicit GEMM on bf16 tensor cores, built by
+``csrc/reflect_conv3x3.cu`` (an implicit GEMM on ``wgmma``, built by
 ``kernels/_build.py``); its header says what bounds it on the H100 and how the
 design answers that.
 
 Weights are prepared once per layer (:func:`prepare_conv`): the HWIO tensor for
-the plain version, and the kernel's GEMM layout, a ``(Kp, Np)`` row-major
-matrix whose rows are HWIO's ``(dy, dx, ci)`` and whose padding is zero.
+the plain version, and the kernel's layout (:func:`pack_weight`): for Cin a
+multiple of 8 the stage tiles of ``kernels/igemm_layout.py``, which the kernel
+fetches whole; otherwise (conv1_1, Cin = 3) the ``(Kp, Np)`` row-major matrix
+of the kernel's scalar-gather path, rows HWIO's ``(dy, dx, ci)``, zero padded.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -21,8 +23,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Tile sizes of csrc/reflect_conv3x3.cu (BK, BN); the packed weights are padded
-# to them so the kernel reads the weight tile without bounds checks.
+from ccst_tpu_torch.kernels.igemm_layout import pack_stage_tiles, pick_bn
+
+# csrc/reflect_conv3x3.cu: the narrow output-channel tile of its wgmma path,
+# and the tile (BK, BN) its scalar-gather path pads the weight matrix to.
+NARROW_N = 8
 TILE_K = 32
 TILE_N = 64
 
@@ -32,16 +37,25 @@ class ConvWeights(NamedTuple):
 
     w: torch.Tensor                 # (kh, kw, Cin, Cout) HWIO, compute dtype
     b: torch.Tensor                 # (Cout,) float32, rounded through the dtype
-    packed: Optional[torch.Tensor]  # 3x3 only: (Kp, Np) kernel layout
+    packed: Optional[torch.Tensor]  # 3x3 only: the kernel's layout (pack_weight)
 
 
 def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+def uses_wgmma(cin: int) -> bool:
+    """The kernel's path is picked by Cin alone: 16-byte channel groups."""
+    return cin % 8 == 0
+
+
 def pack_weight(w_hwio: torch.Tensor) -> torch.Tensor:
-    """HWIO (3, 3, Cin, Cout) -> the kernel's zero-padded (Kp, Np) matrix."""
+    """HWIO (3, 3, Cin, Cout) bf16 -> the kernel's weights: stage tiles
+    (n tiles, chunks, 9, 8, BN, 8) when Cin % 8 == 0, else the zero-padded
+    (Kp, Np) matrix of the gather path."""
     kh, kw, cin, cout = w_hwio.shape
+    if uses_wgmma(cin):
+        return pack_stage_tiles(w_hwio, pick_bn(cout, NARROW_N))
     k = kh * kw * cin
     out = w_hwio.new_zeros((_round_up(k, TILE_K), _round_up(cout, TILE_N)))
     out[:k, :cout] = w_hwio.reshape(k, cout)
@@ -101,12 +115,11 @@ def reflect_conv3x3(x: torch.Tensor, cw: ConvWeights, relu: bool = True) -> torc
 
     lib = _build.library()
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    kp, np_ = cw.packed.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ccst_reflect_conv3x3_bf16(
             x.data_ptr(), cw.packed.data_ptr(), cw.b.data_ptr(), y.data_ptr(),
-            n, h, w, cin, cout, kp, np_, int(relu), stream,
+            n, h, w, cin, cout, int(relu), stream,
         )
     if rc:
         raise RuntimeError(f"reflect_conv3x3 launch failed: CUDA error {rc}")

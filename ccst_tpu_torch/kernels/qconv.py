@@ -9,11 +9,13 @@ accumulation, then per output channel ``y = float(acc) * k + kb`` and either
     int8 (the next layer's input, already on its scale); or
   - dequant: optional ReLU, then the output dtype (bf16 on the engines' path).
 
-The kernel is ``csrc/qconv3x3_s8.cu`` (an implicit GEMM on int8 tensor cores,
+The kernel is ``csrc/qconv3x3_s8.cu`` (an implicit GEMM on int8 ``wgmma``,
 built by ``kernels/_build.py``); its header says what bounds it on the H100 and
 how the design answers that. It takes the weights in its own layout, made once
-by :func:`make_qconv`: a ``(Np, Kp)`` output-channel-major int8 matrix whose
-columns are HWIO's ``(dy, dx, ci)`` and whose padding is zero.
+by :func:`make_qconv` (:func:`pack_weight`): for Cin a multiple of 16 the stage
+tiles of ``kernels/igemm_layout.py``, which the kernel fetches whole; otherwise
+(the packed conv1_1, Cin = 12) the ``(Np, Kp)`` output-channel-major matrix of
+:func:`gemm_weight`, which the fused kernels (K1/K2, B3) take for every layer.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -26,7 +28,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Tile sizes of csrc/qconv3x3_s8.cu (BK, BN); the weight matrix is padded to them.
+from ccst_tpu_torch.kernels.igemm_layout import pack_stage_tiles, pick_bn
+
+# csrc/qconv3x3_s8.cu: the narrow output-channel tile of its wgmma path, and
+# the tile (BK, BN) that gemm_weight pads the weight matrix to.
+NARROW_N = 16
 TILE_K = 64
 TILE_N = 64
 
@@ -41,7 +47,8 @@ class QConvS(NamedTuple):
     kb: torch.Tensor   # (Cout,) f32 per-output-channel additive term
     packed: bool
     requant: bool      # True -> int8 output; False -> dequantized output
-    wt: torch.Tensor   # (Np, Kp) int8: the kernel's weight layout
+    wt: torch.Tensor   # (Np, Kp) int8: the fused kernels' weight matrix (gemm_weight)
+    wp: torch.Tensor   # int8: this kernel's weight layout (pack_weight)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -58,6 +65,21 @@ def gemm_weight(wq: np.ndarray) -> np.ndarray:
     return out
 
 
+def uses_wgmma(cin: int) -> bool:
+    """The kernel's path is picked by Cin alone: 16-byte channel groups."""
+    return cin % 16 == 0
+
+
+def pack_weight(wq: np.ndarray) -> np.ndarray:
+    """HWIO (3, 3, Cin, Cout) int8 -> the weights of ``csrc/qconv3x3_s8.cu``:
+    stage tiles (n tiles, chunks, 9, 8, BN, 16) when Cin % 16 == 0, else the
+    (Np, Kp) matrix of the gather path."""
+    wq = np.ascontiguousarray(wq, np.int8)
+    if uses_wgmma(wq.shape[2]):
+        return pack_stage_tiles(torch.from_numpy(wq), pick_bn(wq.shape[3], NARROW_N)).numpy()
+    return gemm_weight(wq)
+
+
 def make_qconv(wq, k, kb, packed: bool, requant: bool, device) -> QConvS:
     """A :class:`QConvS` on ``device`` from numpy int8 weights and f32 scales."""
     wq = np.asarray(wq, np.int8)
@@ -65,9 +87,11 @@ def make_qconv(wq, k, kb, packed: bool, requant: bool, device) -> QConvS:
     def dev(a):  # a copy: numpy views of JAX arrays are read-only
         return torch.from_numpy(np.array(a)).to(device)
 
+    wt = dev(gemm_weight(wq))
     return QConvS(
         wq=dev(wq), k=dev(np.asarray(k, np.float32)), kb=dev(np.asarray(kb, np.float32)),
-        packed=packed, requant=requant, wt=dev(gemm_weight(wq)),
+        packed=packed, requant=requant, wt=wt,
+        wp=dev(pack_weight(wq)) if uses_wgmma(wq.shape[2]) else wt,
     )
 
 
@@ -129,17 +153,16 @@ def qconv3x3_s8(
     out = torch.int8 if q.requant else out_dtype
     if out not in _OUT_KIND:
         raise TypeError(f"the int8 conv kernel writes int8, bfloat16 or float32, not {out}")
-    _check_operands(x, q.wt, q.k, q.kb)
+    _check_operands(x, q.wp, q.k, q.kb)
     from ccst_tpu_torch.kernels import _build
 
     lib = _build.library()
     y = torch.empty((n, h, w, cout), dtype=out, device=x.device)
-    np_, kp = q.wt.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ccst_qconv3x3_s8(
-            x.data_ptr(), q.wt.data_ptr(), q.k.data_ptr(), q.kb.data_ptr(), y.data_ptr(),
-            n, h, w, cin, cout, kp, np_, int(pad_mode == "reflect"), int(relu),
+            x.data_ptr(), q.wp.data_ptr(), q.k.data_ptr(), q.kb.data_ptr(), y.data_ptr(),
+            n, h, w, cin, cout, int(pad_mode == "reflect"), int(relu),
             _OUT_KIND[out], stream,
         )
     if rc:

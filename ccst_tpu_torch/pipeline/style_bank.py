@@ -19,9 +19,9 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from ccst_tpu.config import StylizeConfig
-from ccst_tpu.data.lists import parse_list, train_list_path
-from ccst_tpu.data.loader import ImageBatchLoader
+from ccst_tpu_torch.config import StylizeConfig
+from ccst_tpu_torch.data.lists import parse_list, train_list_path
+from ccst_tpu_torch.data.loader import ImageBatchLoader
 from ccst_tpu_torch.models import vgg
 from ccst_tpu_torch.ops.welford import (
     WelfordState,

@@ -36,9 +36,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ccst_tpu.config import StylizeConfig, dataset_spec
-from ccst_tpu.data.lists import parse_list, stylized_output_path, train_list_path
-from ccst_tpu.data.loader import ImageBatchLoader, load_image, save_image_u8
+from ccst_tpu_torch.config import StylizeConfig, dataset_spec
+from ccst_tpu_torch.data.lists import parse_list, stylized_output_path, train_list_path
+from ccst_tpu_torch.data.loader import ImageBatchLoader, load_image, save_image_u8
 from ccst_tpu_torch.kernels.adain import fused_adain
 from ccst_tpu_torch.kernels.moments import channel_moments
 from ccst_tpu_torch.models import vgg, vgg_fast

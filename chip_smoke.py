@@ -11,9 +11,13 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
   2. build: the CUDA kernel library from ``ccst_tpu_torch/csrc`` (one nvcc
      per source, in parallel);
   3. each kernel against its plain PyTorch version on the card at the shapes
-     of the 512 px path, with the median time of both: K3 conv, K4 AdaIN, K5
-     moments with their tolerances; K0 int8 conv, K1 fused level-1 encoder and
-     K2 fused level-1 decoder bit for bit, with K0's int8 TOPS; the int8 A/B
+     of the 512 px path, with the median time of both and the kernel's bound
+     (the larger of its operations over the card's dense peak and its bytes,
+     each input read and each output written once, over 3.35 TB/s): K3 conv at
+     every distinct shape of the ``ref`` engine at 512 px, batch 4, cuDNN's
+     bf16 conv timed beside it for comparison only, K4 AdaIN, K5 moments with
+     their tolerances; K0 int8 conv at every shape of the int8 engines, K1
+     fused level-1 encoder and K2 fused level-1 decoder bit for bit; the int8 A/B
      kernels bit for bit at the harnesses' full-width shapes: B1 tiled GEMM
      (int8 -> int32, int8 -> float32, bf16 -> float32, M = 2^18, the five
      (K, N) of the sweep, cuBLAS timed beside it for comparison only), B2
@@ -50,8 +54,10 @@ rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the phase-4 main paths' counts (K2 is on none of them) and,
-for B1-B3, the phase-6 harnesses' counts; the last line is ``{"ok": true,
-"device": {...}}``.
+for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
+/ ``library_ms`` are those of its ``timed_shape`` (K3 and K0 list every
+main-path shape under ``shapes``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 import argparse
 import contextlib
@@ -70,10 +76,31 @@ MAE_BAR = 1e-3                         # ROADMAP.md / BASELINE stylize bar
 MIN_SPREAD = 0.5                       # the bar above assumes outputs spread over [0, 1]
 PSNR_BAR = 20.0                        # int8 vs bf16 ref, ccst_tpu's tests/test_vgg_fast.py bar
 INT8_PEAK_TOPS = 1979.0                # H100 SXM dense int8, NVIDIA data sheet
+BF16_PEAK_TFLOPS = 989.0               # H100 SXM dense bf16, NVIDIA data sheet
+F32_PEAK_TFLOPS = 67.0                 # H100 SXM float32 outside the tensor cores
+HBM_TB_S = 3.35                        # H100 SXM device memory rate
 DOMAINS = ("art_painting", "cartoon", "photo", "sketch")
 SIZE = 512
 DEC_SCALE, DEC_SHIFT = 12.0, 0.5       # last decoder conv: outputs spread over [0, 1]
 
+# K3 at every distinct shape the ``ref`` engine launches at batch 4, 512 px
+# (encoder conv1_1..conv4_1, decoder dconv4_1..dconv1_1; 256->256 at 128 px,
+# 128->128 at 256 px and 64->64 at 512 px serve both), then a ragged one
+K3_SHAPES = [
+    ("conv1_1", (4, 512, 512, 3, 64)),
+    ("conv1_2, dconv1_2", (4, 512, 512, 64, 64)),
+    ("conv2_1", (4, 256, 256, 64, 128)),
+    ("conv2_2, dconv2_2", (4, 256, 256, 128, 128)),
+    ("conv3_1", (4, 128, 128, 128, 256)),
+    ("conv3_2..3_4, dconv3_4..3_2", (4, 128, 128, 256, 256)),
+    ("conv4_1", (4, 64, 64, 256, 512)),
+    ("dconv4_1", (4, 64, 64, 512, 256)),
+    ("dconv3_1", (4, 128, 128, 256, 128)),
+    ("dconv2_1", (4, 256, 256, 128, 64)),
+    ("dconv1_1", (4, 512, 512, 64, 3)),
+    ("ragged", (2, 37, 53, 64, 128)),
+]
+K3_MAIN = (4, 512, 512, 64, 64)
 # K0 at the shapes the int8 engines launch at batch 4, 512 px:
 # (layer, (N, H, W, Cin, Cout), pad, requant, relu)
 K0_SHAPES = [
@@ -122,6 +149,23 @@ B3_HARNESS_BATCH = 32
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def bound(ops, peak_tera, nbytes):
+    """The least time in ms the card could take: ``ops`` operations at
+    ``peak_tera`` (1e12 per second) or ``nbytes`` at the device memory rate,
+    whichever is larger, and which of the two it is."""
+    t_ops, t_bytes = ops / (peak_tera * 1e12) * 1e3, nbytes / (HBM_TB_S * 1e12) * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def conv_bound(shape, peak_tera, in_bytes, out_bytes):
+    """Bound of a 3x3 conv (N, H, W, Cin -> Cout): 2 * 9 * Cin * Cout
+    operations a pixel; the input, the weights, the per-channel f32 terms
+    and the output each moved once."""
+    n, h, w, cin, cout = shape
+    nbytes = n * h * w * (cin * in_bytes + cout * out_bytes) + 9 * cin * cout * in_bytes + 8 * cout
+    return bound(2 * n * h * w * 9 * cin * cout, peak_tera, nbytes)
 
 
 def check_close(name, got, want, rtol, atol):
@@ -257,14 +301,16 @@ def check_int8_kernels(torch, dev, gen, results):
         ms = time_ms(torch, kernel)
         plain_ms = time_ms(torch, plain, reps=2, runs=3)
         tops = 2 * n * h * w * 9 * cin * cout / (ms * 1e-3) / 1e12
+        bd = conv_bound((n, h, w, cin, cout), INT8_PEAK_TOPS, 1, 1 if requant else 2)
         results["K0"].append(dict(layer=layer, shape=[n, h, w, cin, cout], pad=pad,
                                   requant=requant, relu=relu, max_abs_err=0.0, ms=ms,
                                   plain_ms=plain_ms, tops=tops,
-                                  peak_share=tops / INT8_PEAK_TOPS))
+                                  peak_share=tops / INT8_PEAK_TOPS, **bd))
         print(f"K0 qconv {layer} {(n, h, w, cin, cout)} {pad} "
               f"{'requant' if requant else 'dequant bf16'} relu={relu}: bit-exact "
               f"| kernel {ms:.4f} ms ({tops:.1f} TOPS, {100 * tops / INT8_PEAK_TOPS:.1f}% "
-              f"of {INT8_PEAK_TOPS:.0f}) plain f64 {plain_ms:.4f} ms")
+              f"of {INT8_PEAK_TOPS:.0f}) bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({100 * bd['bound_ms'] / ms:.1f}% reached) plain f64 {plain_ms:.4f} ms")
 
     for (n, h, w, cin, cout), pad, requant, relu in K0_EDGE:
         x = int8_input(torch, gen, (n, h, w, cin), dev)
@@ -290,19 +336,24 @@ def check_int8_kernels(torch, dev, gen, results):
             continue
         if len(torch.unique(got)) < 20:
             fail("K1: outputs do not spread, the comparison would say little")
-        for k, kernel, plain, macs in (
+        # per packed pixel: the chain's MACs, the bytes in and out, the weights' bytes
+        for k, kernel, plain, macs, px_bytes, w_bytes in (
             ("K1", lambda: encoder_level1(x, c1, c2),
-             lambda: encoder_level1_reference(x, c1, c2), 108 * 256 + 2304 * 256),
+             lambda: encoder_level1_reference(x, c1, c2), 108 * 256 + 2304 * 256, 12 + 64,
+             108 * 256 + 2304 * 256),
             ("K2", lambda: decoder_level1(y, d2, d1),
-             lambda: decoder_level1_reference(y, d2, d1, torch.bfloat16), 576 * 256 + 2304 * 12),
+             lambda: decoder_level1_reference(y, d2, d1, torch.bfloat16), 576 * 256 + 2304 * 12,
+             64 + 2 * 12, 576 * 256 + 2304 * 12),
         ):
             ms = time_ms(torch, kernel)
             plain_ms = time_ms(torch, plain, reps=2, runs=3)
             tops = 2 * n * hb * wb * macs / (ms * 1e-3) / 1e12
+            bd = bound(2 * n * hb * wb * macs, INT8_PEAK_TOPS, n * hb * wb * px_bytes + w_bytes)
             results[k].append(dict(shape=[n, hb, wb, 12 if k == "K1" else 64], max_abs_err=0.0,
-                                   ms=ms, plain_ms=plain_ms, tops=tops))
+                                   ms=ms, plain_ms=plain_ms, tops=tops, **bd))
             print(f"{k} level1 {(n, hb, wb)} packed: bit-exact | kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOPS of the unfused chain's MACs) plain f64 chain {plain_ms:.4f} ms")
+                  f"({tops:.1f} TOPS of the unfused chain's MACs) bound {bd['bound_ms']:.4f} ms by "
+                  f"{bd['bound_by']} plain f64 chain {plain_ms:.4f} ms")
     torch.cuda.synchronize()
     print("edge shapes: K0, K1, K2 equal their plain versions")
 
@@ -335,9 +386,10 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
             ms = time_ms(torch, lambda: tiled_mm(x, mw, out_dtype))
             plain_ms = time_ms(torch, lambda: tiled_mm_reference(x, w, out_dtype), reps=2, runs=3)
             tops = 2 * m * k * n / (ms * 1e-3) / 1e12
+            peak = bm.BF16_PEAK_TFLOPS if name == "bf16" else bm.INT8_PEAK_TOPS
             row = dict(shape=[m, k, n], variant=name, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       tops=tops, peak_share=tops / (bm.BF16_PEAK_TFLOPS if name == "bf16"
-                                                     else bm.INT8_PEAK_TOPS))
+                       tops=tops, peak_share=tops / peak,
+                       **bound(2 * m * k * n, peak, (m * k + k * n) * x.element_size() + 4 * m * n))
             line = (f"B1 tiled_mm {name} {(m, k, n)}: bit-exact | kernel {ms:.4f} ms "
                     f"({tops:.1f} TOPS, {100 * row['peak_share']:.1f}% of peak) "
                     f"plain f64 {plain_ms:.4f} ms")
@@ -374,8 +426,15 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
             tops = 2 * n * h * w * 9 * cin * cout / (ms * 1e-3) / 1e12
             results[kid].append(dict(shape=[n, h, w, cin, cout], mode=mode, max_abs_err=0.0,
                                      ms=ms, plain_ms=plain_ms, tops=tops))
+            # Winograd F(2x2, 3x3) multiplies 16 positions per 2 x 2 outputs, not 36
+            bd = conv_bound((n, h, w, cin, cout), INT8_PEAK_TOPS, 1, 1)
+            if kid == "B2-wino":
+                bd = bound(2 * n * h * w * 4 * cin * cout, INT8_PEAK_TOPS,
+                           n * h * w * (cin + cout) + 16 * cin * cout)
+            results[kid][-1].update(bd)
             print(f"{kid} {mode} {(n, h, w, cin, cout)}: bit-exact | kernel {ms:.4f} ms "
-                  f"({tops:.1f} direct-conv TOPS) plain f64 {plain_ms:.4f} ms")
+                  f"({tops:.1f} direct-conv TOPS) bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"plain f64 {plain_ms:.4f} ms")
 
     for (n, hb, wb) in (B3_MAIN, *B3_EDGE):
         xp = torch.randint(-5, 120, (n, hb, wb, 256), generator=gen, dtype=torch.int8, device=dev)
@@ -393,10 +452,13 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
             ms = time_ms(torch, lambda c=cat: pool_conv_fused(xp, q, c))
             plain_ms = time_ms(torch, plain, reps=1, runs=3)
             tops = 2 * n * hb * wb * 576 * 128 / (ms * 1e-3) / 1e12
+            bd = bound(2 * n * hb * wb * 576 * 128, INT8_PEAK_TOPS,
+                       n * hb * wb * (256 + 128) + 576 * 128)
             results["B3"].append(dict(shape=[n, hb, wb, 256], cat=cat, max_abs_err=0.0, ms=ms,
-                                      plain_ms=plain_ms, tops=tops))
+                                      plain_ms=plain_ms, tops=tops, **bd))
             print(f"B3 pool_conv {tag} {(n, hb, wb, 256)}: bit-exact | kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOPS) plain (phase max + f64 conv) {plain_ms:.4f} ms")
+                  f"({tops:.1f} TOPS) bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"plain (phase max + f64 conv) {plain_ms:.4f} ms")
         del want
     torch.cuda.synchronize()
     print("edge shapes: B1, B2, B3 equal their plain versions")
@@ -441,6 +503,7 @@ def main() -> int:
     if images_per_domain < batch:
         raise SystemExit("chip_smoke: --images-per-domain must be at least --batch-size")
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -493,37 +556,37 @@ def main() -> int:
     results = {k: [] for k in ("K3", "K4", "K5", "K0", "K1", "K2", "B1", "B2-direct",
                                "B2-wino", "B3")}
 
-    conv_shapes = [
-        (4, 512, 512, 3, 64), (4, 512, 512, 64, 64), (4, 128, 128, 256, 256),
-        (4, 64, 64, 256, 512), (4, 512, 512, 64, 3), (2, 37, 53, 64, 128),
-    ]
-    for (n, h, w, cin, cout) in conv_shapes:
+    for layer, (n, h, w, cin, cout) in K3_SHAPES:
         x = torch.randn((n, h, w, cin), generator=gen).to(dev, torch.bfloat16)
-        bound = (1.0 / (9 * cin)) ** 0.5
-        wt = (torch.rand((3, 3, cin, cout), generator=gen) * 2 - 1) * bound
-        b = (torch.rand((cout,), generator=gen) * 2 - 1) * bound
+        spread = (1.0 / (9 * cin)) ** 0.5
+        wt = (torch.rand((3, 3, cin, cout), generator=gen) * 2 - 1) * spread
+        b = (torch.rand((cout,), generator=gen) * 2 - 1) * spread
         cw = prepare_conv(wt, b, torch.bfloat16, dev)
+        bd = conv_bound((n, h, w, cin, cout), BF16_PEAK_TFLOPS, 2, 2)
+        flop = 2 * n * h * w * 9 * cin * cout
         for relu in (True, False):
             got = reflect_conv3x3(x, cw, relu)
             torch.cuda.synchronize()
             want = reflect_conv3x3_reference(x, cw.w, cw.b, relu)
             mx, mean = check_close(f"K3 {(n, h, w, cin, cout)} relu={relu}", got, want, **BF16_TOL)
-            ms = time_ms(torch, lambda: reflect_conv3x3(x, cw, relu))
-            plain = time_ms(torch, lambda: reflect_conv3x3_reference(x, cw.w, cw.b, relu))
-            flop = 2 * n * h * w * 9 * cin * cout
-            row = dict(shape=[n, h, w, cin, cout], relu=relu, max_abs_err=mx,
-                       mean_abs_err=mean, ms=ms, plain_ms=plain)
-            line = (f"K3 conv {(n, h, w, cin, cout)} relu={relu}: max {mx:.3e} mean {mean:.3e} "
-                    f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) "
-                    f"plain f32 {plain:.4f} ms")
-            if relu:
+            row = dict(layer=layer, shape=[n, h, w, cin, cout], relu=relu, max_abs_err=mx,
+                       mean_abs_err=mean)
+            if relu:  # timed once a shape; ReLU is one max in the epilogue
+                ms = time_ms(torch, lambda: reflect_conv3x3(x, cw, True))
+                plain = time_ms(torch, lambda: reflect_conv3x3_reference(x, cw.w, cw.b, True),
+                                reps=3, runs=3)
                 torch.backends.cudnn.benchmark = True
-                row["cudnn_bf16_ms"] = time_ms(torch, cudnn_bf16_conv(torch, x, cw))
+                lib = time_ms(torch, cudnn_bf16_conv(torch, x, cw))
                 torch.backends.cudnn.benchmark = False
-                line += (f" cuDNN bf16 {row['cudnn_bf16_ms']:.4f} ms "
-                         f"({flop / (row['cudnn_bf16_ms'] * 1e-3) / 1e12:.1f} TFLOP/s)")
+                row.update(ms=ms, plain_ms=plain, cudnn_bf16_ms=lib, **bd)
+                print(f"K3 conv {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean {mean:.3e} "
+                      f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) bound "
+                      f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% "
+                      f"reached) cuDNN bf16 {lib:.4f} ms ({flop / (lib * 1e-3) / 1e12:.1f} TFLOP/s) "
+                      f"plain f32 {plain:.4f} ms")
+            else:
+                print(f"K3 conv {layer} {(n, h, w, cin, cout)} relu=False: max {mx:.3e} mean {mean:.3e}")
             results["K3"].append(row)
-            print(line)
 
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, dict(rtol=1e-5, atol=1e-5))):
         for alpha in (1.0, 0.6):
@@ -536,10 +599,13 @@ def main() -> int:
             mx, mean = check_close(f"K4 {dtype} alpha={alpha}", got, want, **tol)
             ms = time_ms(torch, lambda: fused_adain(feat, s_mean, s_std, alpha), reps=50)
             plain = time_ms(torch, lambda: fused_adain_reference(feat, s_mean, s_std, alpha), reps=50)
+            # two passes of a few float32 operations an element; the tensor in and out
+            bd = bound(10 * feat.numel(), F32_PEAK_TFLOPS, 2 * feat.numel() * feat.element_size())
             results["K4"].append(dict(shape=[4, 64, 64, 512], dtype=str(dtype), alpha=alpha,
-                                      max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain))
+                                      max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain, **bd))
             print(f"K4 adain (4, 64, 64, 512) {dtype} alpha={alpha}: max {mx:.3e} "
-                  f"mean {mean:.3e} | kernel {ms:.4f} ms plain {plain:.4f} ms")
+                  f"mean {mean:.3e} | kernel {ms:.4f} ms bound {bd['bound_ms']:.4f} ms by "
+                  f"{bd['bound_by']} plain {plain:.4f} ms")
 
     for dtype in (torch.bfloat16, torch.float32):
         for shape in ((3, 64, 64, 512), (3, 64, 64, 500)):
@@ -553,15 +619,22 @@ def main() -> int:
             mx2, av2 = check_close(f"K5 m2 {shape} {dtype}", m2, r_m2, rtol=1e-4, atol=0.0)
             ms = time_ms(torch, lambda: channel_moments(feat), reps=50)
             plain = time_ms(torch, lambda: channel_moments_reference(feat), reps=50)
+            # one read of the tensor, a few float32 operations an element
+            bd = bound(6 * feat.numel(), F32_PEAK_TFLOPS, feat.numel() * feat.element_size())
             results["K5"].append(dict(shape=list(shape), dtype=str(dtype), max_abs_err=max(mx1, mx2),
-                                      mean_max_abs_err=mx1, m2_max_abs_err=mx2, ms=ms, plain_ms=plain))
+                                      mean_max_abs_err=mx1, m2_max_abs_err=mx2, ms=ms, plain_ms=plain,
+                                      **bd))
             print(f"K5 moments {shape} {dtype}: mean max {mx1:.3e} avg {av1:.3e}, "
                   f"m2 max {mx2:.3e} avg {av2:.3e} "
-                  f"| kernel {ms:.4f} ms plain {plain:.4f} ms")
+                  f"| kernel {ms:.4f} ms bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"plain {plain:.4f} ms")
 
-    # ragged edges, correctness only: pixels not a multiple of the 128-row
-    # tile, the smallest reflectable plane, the scalar Cin = 3 gather, one row
-    for (n, h, w, cin, cout) in ((1, 2, 2, 64, 64), (3, 17, 9, 128, 3), (1, 5, 3, 3, 64)):
+    # ragged edges, correctness only: the smallest reflectable plane (below the
+    # 8 x 16 tile), planes that are no multiple of it with Cout = 3 and N > 1,
+    # the scalar Cin = 3 gather, two rows, Cin ending inside a 64-channel chunk
+    # with Cout off the 8-channel store, Cout over two 128-wide tiles
+    for (n, h, w, cin, cout) in ((1, 2, 2, 64, 64), (3, 17, 9, 128, 3), (1, 5, 3, 3, 64),
+                                 (2, 2, 19, 64, 64), (1, 9, 20, 80, 12), (2, 11, 33, 16, 136)):
         x = torch.randn((n, h, w, cin), generator=gen).to(dev, torch.bfloat16)
         cw = prepare_conv(torch.randn((3, 3, cin, cout), generator=gen) * 0.1,
                           torch.randn((cout,), generator=gen), torch.bfloat16, dev)
@@ -835,7 +908,7 @@ def main() -> int:
 
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
-               "ccst_tpu/kernels/conv_pallas.py:102", [4, 512, 512, 64, 64], "stylize ref"),
+               "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN), "stylize ref"),
         "K4": ("fused_adain", "triton", "ccst_tpu_torch/kernels/adain_triton.py",
                "ccst_tpu/kernels/adain_pallas.py:56", [4, 64, 64, 512], "stylize ref, int8-fused"),
         "K5": ("channel_moments", "triton", "ccst_tpu_torch/kernels/moments_triton.py",
@@ -863,21 +936,29 @@ def main() -> int:
     kernels = []
     for k, (name, route, source, replaces, shape, path) in sources.items():
         rows = results[k]
-        main_row = next(r for r in rows if r["shape"] == shape
+        main_row = next(r for r in rows if r["shape"] == shape and "ms" in r
                         and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16"
                         and r.get("variant", "i8i32") == "i8i32"
                         and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False))
+        library_ms = main_row.get("cudnn_bf16_ms", main_row.get("cublas_ms"))
+        per_shape = [
+            {key: r.get(key) for key in ("layer", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "cudnn_bf16_ms") if key in r}
+            for r in rows if k in ("K3", "K0") and "ms" in r
+        ]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "path": path,
             # K2's launches in phase 5's direct apply_decoder_q8s_fused call
             **({"side_check_launches": k2_launches} if k == "K2" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "timed_shape": shape,
-            **({"cudnn_bf16_ms": main_row["cudnn_bf16_ms"]} if "cudnn_bf16_ms" in main_row else {}),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": library_ms, "timed_shape": shape,
             **({"tops": main_row["tops"]} if "tops" in main_row else {}),
-            **({"cublas_ms": main_row["cublas_ms"]} if "cublas_ms" in main_row else {}),
+            **({"shapes": per_shape} if per_shape else {}),
         })
+    print(f"wall: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

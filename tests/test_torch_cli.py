@@ -171,12 +171,14 @@ def test_cli_never_loads_jax(tree):
         "from ccst_tpu_torch.benchmarks import fused_pool_conv_ab, int8_mm, winograd_ab\n"
         f"rc = main({['style-bank', *common]!r})\n"
         f"rc += main({['calibrate', *common, '--target', 'photo', '--engine', 'int8-static']!r})\n"
-        "print(json.dumps({'rc': rc, 'jax': 'jax' in sys.modules}))\n"
+        "print(json.dumps({'rc': rc, 'jax': 'jax' in sys.modules,\n"
+        "                  'ccst_tpu': 'ccst_tpu' in sys.modules}))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "jax": False}
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "rc": 0, "jax": False, "ccst_tpu": False}
     assert os.path.exists(os.path.join(tree, "stats_sub", "pacs", "cartoon_mean_std.npz"))
     assert os.path.exists(os.path.join(tree, "stats_sub", "pacs", "photo_q8_scales.json"))

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from ccst_tpu.kernels.conv_pallas import reflect_conv3x3_fused
+from ccst_tpu_torch.kernels import igemm_layout
 from ccst_tpu_torch.kernels.conv import (
+    NARROW_N,
     TILE_K,
     TILE_N,
     pack_weight,
@@ -69,14 +71,48 @@ def test_reference_rounds_once_to_bfloat16(rng):
 
 @pytest.mark.parametrize("cin,cout", [(3, 64), (64, 3), (256, 512)])
 def test_packed_weight_layout(rng, cin, cout):
-    wk = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(np.float32))
+    wk = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(np.float32)).bfloat16()
     packed = pack_weight(wk)
-    kp, np_ = packed.shape
-    assert kp % TILE_K == 0 and np_ % TILE_N == 0
-    assert kp >= 9 * cin and np_ >= cout
-    # rows are HWIO's (dy, dx, ci) in order; the padding is zero
-    assert torch.equal(packed[: 9 * cin, :cout].reshape(3, 3, cin, cout), wk)
-    assert packed[9 * cin :].abs().sum() == 0 and packed[:, cout:].abs().sum() == 0
+    if cin % 8:
+        # the scalar-gather path (conv1_1): rows are HWIO's (dy, dx, ci) in
+        # order, padded with zeros to its tile
+        kp, np_ = packed.shape
+        assert kp % TILE_K == 0 and np_ % TILE_N == 0
+        assert kp >= 9 * cin and np_ >= cout
+        assert torch.equal(packed[: 9 * cin, :cout].reshape(3, 3, cin, cout), wk)
+        assert packed[9 * cin :].abs().sum() == 0 and packed[:, cout:].abs().sum() == 0
+        return
+    # the wgmma path: (n tiles, 64-channel chunks, taps, 16-byte groups, BN, 8)
+    bn = igemm_layout.pick_bn(cout, NARROW_N)
+    assert bn == (NARROW_N if cout == 3 else 128)
+    assert packed.shape == (-(-cout // bn), cin // 64, 9, 8, bn, 8) and packed.is_contiguous()
+    assert torch.equal(igemm_layout.unpack_stage_tiles(packed, cin, cout), wk)
+    # one stage is one contiguous run: tile 0, chunk 0, tap (dy, dx) = (1, 2),
+    # channel 2 * 8 + 5 of the chunk, output channel 1
+    assert packed[0, 0, 5, 2, 1, 5] == wk[1, 2, 21, 1]
+    assert torch.count_nonzero(packed) == torch.count_nonzero(wk)  # the padding is zero
+
+
+# ragged shapes for the model of the kernel's addressing: planes that are no
+# multiple of the 8 x 16 tile or smaller than it, one tile row, Cin ending
+# inside a chunk, Cout = 3 (narrow tile), 12 (64-wide), 130 (two 128-wide tiles) and
+# 264 (three)
+MODEL_SHAPES = [(2, 11, 19, 24, 3), (1, 2, 2, 64, 64), (1, 8, 37, 80, 130), (3, 17, 9, 128, 12),
+                (1, 3, 5, 16, 264)]
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_addressing_model_equals_plain_version(rng, shape):
+    """The halo gather by reflected index, the planes, the tap offsets and the
+    packed weight runs, walked in numpy as the kernel walks them, give the
+    plain version's sums exactly (small integers: float64 adds no rounding)."""
+    n, h, w, cin, cout = shape
+    x = rng.integers(-4, 5, (n, h, w, cin)).astype(np.float64)
+    wk = torch.from_numpy(rng.integers(-4, 5, (3, 3, cin, cout)).astype(np.float32)).bfloat16()
+    packed = pack_weight(wk)
+    got = igemm_layout.simulate_conv(x, packed.double().numpy(), cout, reflect=True)
+    want = reflect_conv3x3_reference(torch.from_numpy(x), wk.double(), torch.zeros(cout), relu=False)
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 def test_prepare_conv_rounds_bias_through_dtype(rng):
@@ -109,8 +145,9 @@ def _meta(shape, dtype=torch.bfloat16):
         (_meta((1, 4, 4, 32)), ValueError),                         # Cin mismatch
         (_meta((1, 4, 4, 64), torch.float32), TypeError),           # bf16 only
         (_meta((1, 4, 64, 4)).permute(0, 1, 3, 2), ValueError),     # not contiguous
+        (_meta((1, 2, 1, 64)), ValueError),                         # W < 2
     ],
-    ids=["h1", "cin", "f32", "strided"],
+    ids=["h1", "cin", "f32", "strided", "w1"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(x, error):
     cw = prepare_conv(torch.randn(3, 3, 64, 8), torch.randn(8), torch.bfloat16, "meta")
@@ -161,3 +198,25 @@ def test_package_data_ships_every_source_and_header():
     for rel in needed:
         assert (_build._PKG / rel).exists(), rel
         assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} is not in package-data {globs}"
+
+
+def test_ptxas_report_parses_verbose_output():
+    from ccst_tpu_torch.benchmarks.ptxas_report import parse, short_name
+
+    name = "_ZN47_GLOBAL__N__62e5df1f_14_qconv3x3_s8_cu_2380418224qconv3x3_s8_wgmma_kernelILi128ELi1ELi2EEEvPKhS2_PKfS4_Pvi"
+    assert short_name(name) == "qconv3x3_s8_wgmma_kernel<128,1,2>"
+    assert short_name("_ZN3foo29reflect_conv3x3_gather_kernelEPK13__nv_bfloat16") == (
+        "reflect_conv3x3_gather_kernel")
+    assert short_name("_Z9something") == "_Z9something"
+    report = parse(
+        "ptxas info    : (C7519) warpgroup.arrive is injected in around line 9 by compiler\n"
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    64 bytes stack frame, 124 bytes spill stores, 120 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 64 bytes cumulative stack size, 1024 bytes smem\n"
+        "ptxas info    : Compiling entry function 'plain' for 'sm_90a'\n"
+        "ptxas info    : Used 30 registers, used 1 barriers\n")
+    assert report == {"injected_fences": 1, "kernels": [
+        dict(kernel="qconv3x3_s8_wgmma_kernel<128,1,2>", registers=128, smem_bytes=1024,
+             spill_store_bytes=124, spill_load_bytes=120),
+        dict(kernel="plain", registers=30, smem_bytes=0, spill_store_bytes=0, spill_load_bytes=0)]}

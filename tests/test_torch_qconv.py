@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from ccst_tpu.models import vgg_fast as jf
-from ccst_tpu_torch.kernels import qconv
+from ccst_tpu_torch.kernels import igemm_layout, qconv
 
 
 def _layer(rng, cin, cout, requant, packed=False):
@@ -65,6 +65,56 @@ def test_gemm_weight_layout(rng):
     assert wt[5, (2 * 3 + 1) * 12 + 7] == wq[2, 1, 7, 5]
 
 
+@pytest.mark.parametrize("cin,cout", [(12, 256), (256, 12), (64, 128), (512, 256)])
+def test_packed_weight_layout(rng, cin, cout):
+    """K0's own layout: the gather path's matrix for Cin = 12, else the stage
+    tiles (n tiles, 128-channel chunks, taps, 16-byte groups, BN, 16), which
+    round-trip to HWIO and pad with zeros; the fused kernels' matrix stays."""
+    wq = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    q = qconv.make_qconv(wq, np.ones(cout, np.float32), np.zeros(cout, np.float32),
+                         False, True, "cpu")
+    np.testing.assert_array_equal(q.wt.numpy(), qconv.gemm_weight(wq))
+    if cin % 16:
+        assert q.wp is q.wt
+        return
+    bn = igemm_layout.pick_bn(cout, qconv.NARROW_N)
+    assert bn == (qconv.NARROW_N if cout == 12 else 128)
+    assert q.wp.shape == (-(-cout // bn), -(-cin // 128), 9, 8, bn, 16) and q.wp.is_contiguous()
+    np.testing.assert_array_equal(igemm_layout.unpack_stage_tiles(q.wp, cin, cout).numpy(), wq)
+    assert q.wp[0, 0, 7, 3, 2, 9] == wq[2, 1, 3 * 16 + 9, 2]
+    assert np.abs(q.wp.numpy().astype(np.int64)).sum() == np.abs(wq.astype(np.int64)).sum()
+
+
+# ragged shapes for the model of the kernel's addressing: odd planes, a plane
+# smaller than the tile, one row (edge only), Cin = 64 (half a chunk) and 144
+# (ending inside the second), Cout = 12 (narrow tile), 100 (128-wide), 130 (two
+# tiles) and 264 (three)
+MODEL_CASES = [
+    ((2, 9, 17, 144, 12), "edge"),
+    ((1, 5, 33, 64, 130), "reflect"),
+    ((1, 3, 4, 32, 100), "reflect"),
+    ((1, 2, 3, 16, 264), "edge"),
+    ((1, 1, 5, 16, 16), "edge"),
+    ((2, 2, 2, 128, 64), "reflect"),
+]
+
+
+@pytest.mark.parametrize("shape,pad", MODEL_CASES)
+def test_kernel_addressing_model_equals_plain_version(rng, shape, pad):
+    """The halo gather by reflected or clamped index, the planes, the tap
+    offsets and the packed weight runs, walked in numpy as the kernel walks
+    them, give the plain version's int32 sums exactly."""
+    n, h, w, cin, cout = shape
+    x = rng.integers(-127, 128, (n, h, w, cin)).astype(np.int8)
+    wq = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    got = igemm_layout.simulate_conv(x.astype(np.int64), qconv.pack_weight(wq).astype(np.int64),
+                                     cout, reflect=pad == "reflect")
+    want = qconv.qconv3x3_s8_reference(
+        torch.from_numpy(x), torch.from_numpy(wq), torch.ones(cout), torch.zeros(cout),
+        False, False, torch.float32, pad)
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int64))
+
+
 def test_rejects_unknown_pad_mode(rng):
     _, ours = _layer(rng, 64, 64, True)
     with pytest.raises(ValueError, match="pad_mode"):
@@ -85,8 +135,9 @@ def _meta(shape, dtype=torch.int8):
         (_meta((1, 1, 4, 64)), "reflect", ValueError),                   # H < 2 for reflect
         (_meta((1, 4, 4, 64), torch.bfloat16), "edge", TypeError),       # int8 only
         (_meta((1, 4, 64, 4)).permute(0, 1, 3, 2), "edge", ValueError),  # not contiguous
+        (_meta((1, 4, 1, 64)), "reflect", ValueError),                   # W < 2 for reflect
     ],
-    ids=["cin", "h1", "bf16", "strided"],
+    ids=["cin", "h1", "bf16", "strided", "w1"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(rng, x, pad, error):
     q = qconv.make_qconv(rng.integers(-127, 128, (3, 3, 64, 8)).astype(np.int8),

@@ -12,6 +12,7 @@ import torch
 
 from ccst_tpu.models import convert as jconvert
 from ccst_tpu.models import vgg as jvgg
+from ccst_tpu_torch.kernels import igemm_layout
 from ccst_tpu_torch.models import convert as tconvert
 from ccst_tpu_torch.models import vgg as tvgg
 
@@ -42,11 +43,15 @@ def test_from_jax_params_bridge(jax_params):
         cw = prepared[name]
         np.testing.assert_array_equal(cw.w.numpy(), p["w"])
         np.testing.assert_array_equal(cw.b.numpy(), p["b"])
-        if p["w"].shape[0] == 3:
-            k, cout = 9 * p["w"].shape[2], p["w"].shape[3]
-            np.testing.assert_array_equal(cw.packed[:k, :cout].numpy(), p["w"].reshape(k, cout))
-        else:
+        cin, cout = p["w"].shape[2:]
+        if p["w"].shape[0] != 3:
             assert cw.packed is None
+        elif cin % 8:  # conv1_1: the gather path's (Kp, Np) matrix
+            np.testing.assert_array_equal(cw.packed[:9 * cin, :cout].numpy(),
+                                          p["w"].reshape(9 * cin, cout))
+        else:          # the wgmma path's stage tiles
+            np.testing.assert_array_equal(
+                igemm_layout.unpack_stage_tiles(cw.packed, cin, cout).numpy(), p["w"])
 
 
 @pytest.mark.parametrize("shape", [(2, 6, 6, 4), (1, 7, 5, 3)])
