@@ -25,6 +25,7 @@ import torch
 # H100 SXM dense peaks (NVIDIA data sheet), at the 700 W power limit
 INT8_PEAK_TOPS = 1979.0
 BF16_PEAK_TFLOPS = 989.0
+HBM_TB_S = 3.35  # device memory rate of the same data sheet
 
 
 def add_common_args(ap: argparse.ArgumentParser) -> None:

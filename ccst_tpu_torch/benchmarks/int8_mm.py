@@ -8,9 +8,15 @@ variants, int8 -> int32, int8 -> float32 and bf16 -> float32, of
 
   kernel_{i8i32,i8f32,bf16}_{K}x{N}     the kernel's TOPS (TFLOP/s for bf16)
   peak_share_{...}_{K}x{N}              of the 1,979 int8 / 989 bf16 dense peak
-  cublas_{i8i32,bf16}_{K}x{N}           ``torch._int_mm`` and a bf16
-                                        ``torch.matmul``, timed for comparison
-                                        only (they are not the port)
+  bound_share_{...}_{K}x{N}             of the least time the card could take:
+                                        the larger of the operations at that
+                                        peak and the bytes (x, w once in, y
+                                        once out) at 3.35 TB/s; at these shapes
+                                        it is the bytes
+  cublas_{i8i32,bf16}_{K}x{N}           ``torch._int_mm`` and ``torch.mm(x, w,
+                                        out_dtype=torch.float32)``, the library
+                                        calls for the same functions, timed for
+                                        comparison only (they are not the port)
 
 Each kernel's first 1024 rows are held to its plain version bit for bit first.
 
@@ -70,13 +76,17 @@ def main(argv=None) -> dict:
             if dev.type != "cuda":
                 continue
             peak = bm.BF16_PEAK_TFLOPS if name == "bf16" else bm.INT8_PEAK_TOPS
-            tops = ops / (bm.time_ms(lambda: tiled_mm(x, mw, out_dtype), args) * 1e-3) / 1e12
+            ms = bm.time_ms(lambda: tiled_mm(x, mw, out_dtype), args)
+            tops = ops / (ms * 1e-3) / 1e12
+            nbytes = (x.numel() + w.numel()) * x.element_size() + 4 * args.m * n
             res[f"kernel_{name}_{k}x{n}"] = tops
             res[f"peak_share_{name}_{k}x{n}"] = tops / peak
+            res[f"bound_share_{name}_{k}x{n}"] = max(ops / (peak * 1e9),
+                                                      nbytes / (bm.HBM_TB_S * 1e9)) / ms
             if name == "i8f32":
                 continue
             lib = ((lambda: torch._int_mm(x, w)) if name == "i8i32"
-                   else (lambda: torch.matmul(x, w)))
+                   else (lambda: torch.mm(x, w, out_dtype=torch.float32)))
             res[f"cublas_{name}_{k}x{n}"] = ops / (bm.time_ms(lib, args) * 1e-3) / 1e12
         res[f"exact_{k}x{n}"] = True
         print(json.dumps(res), flush=True)

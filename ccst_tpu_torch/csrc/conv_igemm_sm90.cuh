@@ -145,21 +145,23 @@ __device__ __forceinline__ uint64_t desc_at(uint64_t strides, uint32_t addr) {
 // bytes of K), both from shared memory, K-major. BF16: m64nNk16; else
 // m64nNk32 on int8. Register j of a thread (warp w of the warpgroup, g =
 // lane / 4, t = lane % 4): row 16 w + g + 8 * ((j / 2) % 2), column
-// 8 * (j / 4) + 2 t + j % 2.
+// 8 * (j / 4) + 2 t + j % 2. accumulate = 0: D = A * B, whatever D held.
 template <bool BF16, int N> struct Wgmma;
 template <> struct Wgmma<true, 8> {
-  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da, uint64_t db,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3}, "
         "%4, %5, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 template <> struct Wgmma<true, 64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -170,11 +172,12 @@ template <> struct Wgmma<true, 64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 template <> struct Wgmma<true, 128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -191,22 +194,24 @@ template <> struct Wgmma<true, 128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 template <> struct Wgmma<false, 16> {
-  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da, uint64_t db,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, "
         "%8, %9, p;\n}\n"
         : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 template <> struct Wgmma<false, 64> {
-  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
@@ -217,11 +222,12 @@ template <> struct Wgmma<false, 64> {
           "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
           "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
           "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 template <> struct Wgmma<false, 128> {
-  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t da, uint64_t db) {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
@@ -238,21 +244,35 @@ template <> struct Wgmma<false, 128> {
           "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
           "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
           "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 
 template <bool BF16> struct AccType { using type = float; };
 template <> struct AccType<false> { using type = int; };
 
+// What a single-pass caller hands the mainloop as its per-pass epilogue.
+struct NoPassEpilogue {
+  template <typename Acc> __device__ __forceinline__ void operator()(int, Acc&) const {}
+};
+
 // The mainloop: acc += conv3x3 of the block's tile. x is the NHWC input in
 // bytes, wp the packed weights; (n, y0, x0) the tile's image and corner,
 // ntile its output-channel tile. Every thread of the block calls it.
-template <bool BF16, int BN, int TPS>
+//
+// RESIDENT: the caller has already written the tile's halo, every chunk of it
+// (g.a_slots == g.nchunks), into the A planes at the head of `smem` (and made
+// it visible to the async proxy); x is not read and nothing is gathered.
+// NPASS > 1: the block walks output-channel tiles ntile .. ntile + NPASS - 1
+// over the same A in one run of the weight ring; after each tile's last step
+// epi(pass, acc) consumes the sums and they restart from zero.
+template <bool BF16, int BN, int TPS, bool RESIDENT = false, int NPASS = 1,
+          typename Epi = NoPassEpilogue>
 __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc)[BN / 2],
                                               const uint8_t* __restrict__ x,
                                               const uint8_t* __restrict__ wp, const ConvGeom& g,
-                                              int n, int y0, int x0, int ntile, uint8_t* smem) {
+                                              int n, int y0, int x0, int ntile, uint8_t* smem,
+                                              Epi epi = Epi()) {
   constexpr int S = Ring<TPS>::STAGES;
   constexpr int SPC = 9 / TPS;         // steps per chunk
   constexpr int B_TAP = BN * CHUNK;    // bytes of one tap's weights of one chunk
@@ -262,7 +282,8 @@ __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc
   const uint32_t sA = smem_u32(smem);
   const uint32_t sB = sA + g.a_slots * A_BYTES;
   const uint32_t bars = sB + g.b_slots * B_STAGE;
-  const int T = g.nchunks * SPC;
+  const int T = g.nchunks * SPC;       // steps of one output-channel tile
+  const int total = NPASS * T;
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
@@ -272,27 +293,32 @@ __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc
   // the halo pixels this thread copies: pixel (tid / 8) + 32 i, group tid % 8
   const int grp = tid & (GROUPS - 1);
   int pix[A_ITEMS];
+  if constexpr (!RESIDENT) {
 #pragma unroll
-  for (int i = 0; i < A_ITEMS; ++i) {
-    const int p = (tid >> 3) + (THREADS / GROUPS) * i;
-    const int hy = p / HALO_W, hx = p - hy * HALO_W;
-    const int gy = pad_index(y0 - 1 + hy, g.H, g.reflect);
-    const int gx = pad_index(x0 - 1 + hx, g.W, g.reflect);
-    pix[i] = p < HALO_PX ? (n * g.H + gy) * g.W + gx : -1;
+    for (int i = 0; i < A_ITEMS; ++i) {
+      const int p = (tid >> 3) + (THREADS / GROUPS) * i;
+      const int hy = p / HALO_W, hx = p - hy * HALO_W;
+      const int gy = pad_index(y0 - 1 + hy, g.H, g.reflect);
+      const int gx = pad_index(x0 - 1 + hx, g.W, g.reflect);
+      pix[i] = p < HALO_PX ? (n * g.H + gy) * g.W + gx : -1;
+    }
   }
   __syncthreads();  // the barriers are initialised
 
+  // the weight stages of tiles ntile .. ntile + NPASS - 1 are one run of bytes
   auto load_step = [&](int step) {
-    const int c = step / SPC;
-    if (step - c * SPC == 0) {
-      const int cb = c * CHUNK + grp * 16;  // byte of this group in the pixel's channels
-      const bool in = cb < g.cin_bytes;     // past Cin: zero fill (the weights are zero there too)
-      const uint32_t dst = sA + (c % g.a_slots) * A_BYTES + grp * PLANE;
+    if constexpr (!RESIDENT) {
+      const int c = step / SPC;
+      if (step - c * SPC == 0) {
+        const int cb = c * CHUNK + grp * 16;  // byte of this group in the pixel's channels
+        const bool in = cb < g.cin_bytes;     // past Cin: zero fill (the weights are zero there too)
+        const uint32_t dst = sA + (c % g.a_slots) * A_BYTES + grp * PLANE;
 #pragma unroll
-      for (int i = 0; i < A_ITEMS; ++i) {
-        if (pix[i] < 0) continue;
-        const int p = (tid >> 3) + (THREADS / GROUPS) * i;
-        cp_async16(dst + p * 16, in ? x + static_cast<size_t>(pix[i]) * g.cin_bytes + cb : x, in);
+        for (int i = 0; i < A_ITEMS; ++i) {
+          if (pix[i] < 0) continue;
+          const int p = (tid >> 3) + (THREADS / GROUPS) * i;
+          cp_async16(dst + p * 16, in ? x + static_cast<size_t>(pix[i]) * g.cin_bytes + cb : x, in);
+        }
       }
     }
     if (tid == 0) {
@@ -305,49 +331,58 @@ __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc
 
 #pragma unroll
   for (int s = 0; s < S - 2; ++s) {
-    if (s < T) load_step(s);
+    if (s < total) load_step(s);
     cp_async_commit();
   }
 
   const uint64_t a_strides = desc_strides(PLANE, HALO_W * 16);
   const uint64_t b_strides = desc_strides(BN * 16, 128);
-  for (int step = 0; step < T; ++step) {
-    const int slot = step % S;
-    cp_async_wait<S - 3>();  // this thread's copies for `step` have landed
-    fence_proxy_async();
-    __syncthreads();         // everyone's have, and step - 2 has left the tensor cores
-    if (step + S - 2 < T) load_step(step + S - 2);
-    cp_async_commit();
-    mbar_wait(bars + 8 * slot, (step / S) & 1);
+  for (int pass = 0; pass < NPASS; ++pass) {
+    for (int ps = 0; ps < T; ++ps) {
+      const int step = pass * T + ps;
+      const int slot = step % S;
+      cp_async_wait<S - 3>();  // this thread's copies for `step` have landed
+      fence_proxy_async();
+      __syncthreads();         // everyone's have, and step - 2 has left the tensor cores
+      if (step + S - 2 < total) load_step(step + S - 2);
+      cp_async_commit();
+      mbar_wait(bars + 8 * slot, (step / S) & 1);
 
-    const int c = step / SPC;
-    const int t0 = (step - c * SPC) * TPS;
-    const int kc = min(4, (g.cin_bytes - c * CHUNK + 31) >> 5);  // 32-byte K steps in this chunk
-    const uint32_t a_base = sA + (c % g.a_slots) * A_BYTES + wg * 8 * 16;
-    const uint32_t b_base = sB + slot * B_STAGE;
-    // one tap's products; FULL: all four K steps, no branch between the wgmmas
-    // (across a branch the assembler fences every one of them again)
-    auto tap_mma = [&](int tt, auto full) {
-      const int tap = t0 + tt;
-      const int dy = tap / 3, dx = tap - dy * 3;
-      const uint32_t a_tap = a_base + (dy * HALO_W + dx) * 16;
+      const int c = ps / SPC;
+      const int t0 = (ps - c * SPC) * TPS;
+      const int kc = min(4, (g.cin_bytes - c * CHUNK + 31) >> 5);  // 32-byte K steps in this chunk
+      const uint32_t a_base = sA + (c % g.a_slots) * A_BYTES + wg * 8 * 16;
+      const uint32_t b_base = sB + slot * B_STAGE;
+      // one tap's products; FULL: all four K steps, no branch between the wgmmas
+      // (across a branch the assembler fences every one of them again)
+      auto tap_mma = [&](int tt, auto full) {
+        const int tap = t0 + tt;
+        const int dy = tap / 3, dx = tap - dy * 3;
+        const uint32_t a_tap = a_base + (dy * HALO_W + dx) * 16;
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        if (decltype(full)::value || ks < kc)
-          Wgmma<BF16, BN>::mma(acc, desc_at(a_strides, a_tap + ks * 2 * PLANE),
-                               desc_at(b_strides, b_base + tt * B_TAP + ks * 2 * BN * 16));
+        for (int ks = 0; ks < 4; ++ks) {
+          if (decltype(full)::value || ks < kc)
+            Wgmma<BF16, BN>::mma(acc, desc_at(a_strides, a_tap + ks * 2 * PLANE),
+                                 desc_at(b_strides, b_base + tt * B_TAP + ks * 2 * BN * 16));
+        }
+      };
+      wgmma_fence();
+      if (kc == 4) {
+#pragma unroll
+        for (int tt = 0; tt < TPS; ++tt) tap_mma(tt, std::true_type{});
+      } else {
+#pragma unroll
+        for (int tt = 0; tt < TPS; ++tt) tap_mma(tt, std::false_type{});
       }
-    };
-    wgmma_fence();
-    if (kc == 4) {
-#pragma unroll
-      for (int tt = 0; tt < TPS; ++tt) tap_mma(tt, std::true_type{});
-    } else {
-#pragma unroll
-      for (int tt = 0; tt < TPS; ++tt) tap_mma(tt, std::false_type{});
+      wgmma_commit();
+      wgmma_wait<1>();
     }
-    wgmma_commit();
-    wgmma_wait<1>();
+    if constexpr (NPASS > 1) {
+      wgmma_wait<0>();
+      epi(pass, acc);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    }
   }
   wgmma_wait<0>();
 }

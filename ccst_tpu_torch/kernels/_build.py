@@ -36,8 +36,8 @@ SIGNATURES = {
     "ccst_qconv3x3_s8": [_P] * 5 + [_I] * 8 + [_P],
     # x, w1, k1, kb1, w2, k2, kb2, y, N, Hb, Wb, Cin, Kp1, Kp2, Cout, pool, stream
     "ccst_fused_two_conv_s8": [_P] * 8 + [_I] * 8 + [_P],
-    # x, wt, y, M, N, K, Kp, Np, kind, stream
-    "ccst_tiled_mm": [_P] * 3 + [_I] * 6 + [_P],
+    # x, wp, y, M, N, K, kind, stream
+    "ccst_tiled_mm": [_P] * 3 + [_I] * 4 + [_P],
     # x, w, k, kb, y, N, Hb, Wb, Cin, Cout, Kp, wino, mode, stream
     "ccst_winograd_s8": [_P] * 5 + [_I] * 8 + [_P],
     # xp, wk, k, kb, y, N, Hb, Wb, Cout, Kp, Np, cat, stream

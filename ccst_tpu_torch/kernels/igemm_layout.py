@@ -1,6 +1,7 @@
-"""Host side of ``csrc/conv_igemm_sm90.cuh``, the ``wgmma`` core of the two 3x3
-conv kernels (K3 bf16, K0 int8): its tile constants, the packed weight layout,
-and a numpy model of the kernel's addressing.
+"""Host side of ``csrc/conv_igemm_sm90.cuh``, the ``wgmma`` core of the 3x3 conv
+kernels (K3 bf16, K0 int8, and conv1_2 inside the fused level-1 encoder K1):
+its tile constants, the packed weight layout, and a numpy model of the kernel's
+addressing.
 
 The kernel works in bytes. A block computes 8 rows x 16 pixels for ``BN``
 output channels; per chunk of 128 bytes of input channels (64 bf16, 128 int8)
@@ -14,6 +15,10 @@ bytes)``, zero where Cin or Cout end inside a chunk or a tile.
 runs in numpy. It is the executable description of the addressing that the
 CPU tests hold against the plain versions, since the kernel itself runs only
 on the card.
+
+:func:`level1_column_order` is the order of conv1_2's output columns in K1's
+packed weights, which puts the four phases of a channel into one thread's
+accumulator registers.
 """
 from __future__ import annotations
 
@@ -101,3 +106,29 @@ def simulate_conv(x: np.ndarray, packed: np.ndarray, cout: int, reflect: bool) -
                     ok = (oy < h) & (ox < w)
                     out[n, oy[ok], ox[ok]] = acc[wg, ok]
     return out[..., :cout]
+
+
+def accumulator_column(j: int, t: int, e: int) -> int:
+    """Tile column of a thread's accumulator pair ``j`` (one per 8 columns),
+    quad lane ``t`` and element ``e`` of the pair (``Wgmma`` in the header)."""
+    return 8 * j + 2 * t + e
+
+
+def level1_column_order(channels: int = 64, bn: int = 128) -> np.ndarray:
+    """``order[column]`` = the output channel of the packed conv1_2 (phase-major,
+    ``phase * channels + c``) that K1 computes in that column of its two
+    ``bn``-wide passes. A thread of quad lane ``t`` holds columns ``8 j + 2 t +
+    e``; with ``j = 4 jc + phase`` its four phases of channel ``16 t + 8 p +
+    2 jc + e`` are four of its own registers in pass ``p``, so the phase max
+    (pool1) needs no exchange, and after both passes the thread holds channels
+    ``16 t .. 16 t + 15`` of its pixels: one 16-byte store."""
+    passes = 4 * channels // bn
+    order = np.empty(4 * channels, np.int64)
+    for p in range(passes):
+        for jc in range(bn // 32):
+            for phase in range(4):
+                for t in range(4):
+                    for e in range(2):
+                        col = p * bn + accumulator_column(4 * jc + phase, t, e)
+                        order[col] = phase * channels + 16 * t + 8 * p + 2 * jc + e
+    return order

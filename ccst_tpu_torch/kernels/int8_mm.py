@@ -9,12 +9,19 @@ as there:
   - int8 x int8 -> float32 (int32 accumulation, converted once);
   - bfloat16 x bfloat16 -> float32 (float32 accumulation).
 
-The kernel is ``csrc/int8_mm.cu`` (``mma.sync`` on int8 or bf16 tensor cores,
-built by ``kernels/_build.py``); its header says what bounds it on the H100.
-It takes the weights in its own layout, made once by :func:`prepare_mm_weight`:
-an ``(Np, Kp)`` output-column-major matrix, k contiguous, zero padded to the
-tile. Any M runs (the ragged last row tile is masked); K must be a multiple of
-16 bytes of the element type and N a multiple of 8.
+The kernel is ``csrc/int8_mm.cu`` (``wgmma`` on int8 or bf16 tensor cores from
+a ring of shared-memory stages that a producer thread fills through the Tensor
+Memory Accelerator, built by ``kernels/_build.py``); its header says what
+bounds it on the H100 (device memory, at every shape of the probe) and what the
+design does about that. It takes the weights in its own layout, made once by
+:func:`prepare_mm_weight` (:func:`pack_mm_weight`): the bytes of its
+shared-memory stages, which it fetches whole. Any M runs (rows past M arrive as
+zeros and are never stored); K must be a multiple of 16 bytes of the element
+type and N a multiple of 8.
+
+:func:`simulate_mm` walks the kernel's work items, A planes and packed weight
+stages in numpy: the executable description of its addressing, which the CPU
+tests hold against the plain version since the kernel runs only on the card.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -23,11 +30,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-# Tile sizes of csrc/int8_mm.cu: BN output columns; BK bytes of the reduction.
+from ccst_tpu_torch.kernels.igemm_layout import pack_stage_tiles
+
+# Tile sizes of csrc/int8_mm.cu: a work item is TILE_M rows (64 per consumer
+# warpgroup) by TILE_N columns; a stage holds 128 bytes of K.
+TILE_M = 192
 TILE_N = 128
-TILE_K_BYTES = 64
 
 # (input dtype, output dtype) -> the C entry point's ``kind``
 _KINDS = {
@@ -41,11 +52,23 @@ class MMWeight(NamedTuple):
     """A GEMM right-hand side on a device."""
 
     w: torch.Tensor   # (K, N) int8 or bfloat16, as given
-    wt: torch.Tensor  # (Np, Kp) the kernel's layout: row n is column n of w, zero padded
+    wt: torch.Tensor  # the kernel's layout (pack_mm_weight)
 
 
-def _round_up(v: int, m: int) -> int:
-    return (v + m - 1) // m * m
+def pack_mm_weight(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> (n tiles, chunks, 8, TILE_N, 16 / itemsize), contiguous: the
+    bytes of every weight stage as the kernel holds them in shared memory,
+    K-major (a 16-byte group's k innermost), zero where K ends inside a
+    128-byte chunk or N inside a tile. It is the conv core's layout
+    (``igemm_layout.pack_stage_tiles``) with one tap."""
+    return pack_stage_tiles(w[None, None], TILE_N)[:, :, 0]
+
+
+def unpack_mm_weight(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_mm_weight`: back to (k, n)."""
+    tiles, chunks, groups, bn, per_group = packed.shape
+    w = packed.permute(1, 2, 4, 0, 3).reshape(chunks * groups * per_group, tiles * bn)
+    return w[:k, :n].contiguous()
 
 
 def prepare_mm_weight(w: torch.Tensor) -> MMWeight:
@@ -53,11 +76,43 @@ def prepare_mm_weight(w: torch.Tensor) -> MMWeight:
     if w.dtype not in (torch.int8, torch.bfloat16) or w.dim() != 2:
         raise TypeError(f"prepare_mm_weight takes a 2-D int8 or bfloat16 matrix, got "
                         f"{w.dtype} {tuple(w.shape)}")
-    k, n = w.shape
-    kp = _round_up(k, TILE_K_BYTES // w.element_size())
-    wt = torch.zeros((_round_up(n, TILE_N), kp), dtype=w.dtype, device=w.device)
-    wt[:n, :k] = w.t()
-    return MMWeight(w=w.contiguous(), wt=wt)
+    return MMWeight(w=w.contiguous(), wt=pack_mm_weight(w))
+
+
+def swizzle128(row: np.ndarray, piece: np.ndarray) -> np.ndarray:
+    """Index of 16-byte ``piece`` (0..7) of ``row`` in an A stage, in 16-byte
+    units: the 128-byte swizzle the tensor map writes and the kernel's A
+    descriptor reads. Row r starts at 8 r; its pieces are permuted by r % 8."""
+    return 8 * row + (piece ^ (row % 8))
+
+
+def simulate_mm(x: np.ndarray, packed: np.ndarray, n_cols: int) -> np.ndarray:
+    """The sums the kernel forms, (M, n_cols) in ``x.dtype`` (use float64 or
+    int64, one element per int8 / bf16 value): per work item and 128-byte
+    chunk of K the A stage as the tensor map delivers it (``TILE_M`` rows of
+    eight swizzled 16-byte pieces, zero past M and past K), a consumer
+    warpgroup's 64 rows read back through the same swizzle, and the weights
+    read from ``packed`` as the kernel's descriptors walk them."""
+    m, k = x.shape
+    tiles, chunks, groups, bn, per_group = packed.shape
+    per_chunk = groups * per_group
+    out = np.zeros((m, tiles * bn), x.dtype)
+    r = np.arange(64)
+    for m0 in range(0, m, TILE_M):
+        rows = np.arange(min(TILE_M, m - m0))
+        for t in range(tiles):
+            acc = np.zeros((TILE_M // 64, 64, bn), x.dtype)
+            for c in range(chunks):
+                stage = np.zeros((TILE_M * groups, per_group), x.dtype)
+                for grp in range(groups):
+                    k0 = c * per_chunk + grp * per_group
+                    if k0 < k:  # K is a whole number of 16-byte groups
+                        stage[swizzle128(rows, grp)] = x[m0 + rows, k0:k0 + per_group]
+                for wg in range(TILE_M // 64):
+                    a = np.stack([stage[swizzle128(64 * wg + r, grp)] for grp in range(groups)])
+                    acc[wg] += np.einsum("grk,gnk->rn", a, packed[t, c])
+            out[m0 + rows, t * bn:(t + 1) * bn] = acc.reshape(TILE_M, bn)[rows]
+    return out[:, :n_cols]
 
 
 def tiled_mm_reference(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -98,11 +153,10 @@ def tiled_mm(x: torch.Tensor, mw: MMWeight, out_dtype: torch.dtype) -> torch.Ten
 
     lib = _build.library()
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    np_, kp = mw.wt.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ccst_tiled_mm(x.data_ptr(), mw.wt.data_ptr(), y.data_ptr(),
-                               m, n, k, kp, np_, kind, stream)
+                               m, n, k, kind, stream)
     if rc:
         raise RuntimeError(f"tiled_mm launch failed: CUDA error {rc}")
     tiled_mm.launches += 1

@@ -36,7 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from ccst_tpu_torch.kernels.conv import _tensor, prepare_conv
-from ccst_tpu_torch.kernels.level1 import decoder_level1, encoder_level1, phase_max
+from ccst_tpu_torch.kernels.level1 import (
+    decoder_level1,
+    encoder_level1,
+    phase_max,
+    prepare_encoder_level1,
+)
 from ccst_tpu_torch.kernels.qconv import make_qconv, qconv3x3_s8
 from ccst_tpu_torch.models import vgg
 from ccst_tpu_torch.ops.adain import adain_from_stats, alpha_blend
@@ -187,8 +192,11 @@ def _prepare_q8s(
 
 
 def prepare_encoder_q8s(params, scales: Dict[str, float], dtype=torch.bfloat16, device="cpu"):
-    """``params``: :func:`cast_params` output for ``dtype``."""
-    return _prepare_q8s(params, scales, _ENC_NEXT, _PACKED_ENC, dtype, device)
+    """``params``: :func:`cast_params` output for ``dtype``. ``"__level1__"``
+    holds conv1_1 / conv1_2 once more, in the fused level-1 kernel's layouts."""
+    prep = _prepare_q8s(params, scales, _ENC_NEXT, _PACKED_ENC, dtype, device)
+    prep["__level1__"] = prepare_encoder_level1(prep["conv1_1"], prep["conv1_2"])
+    return prep
 
 
 def prepare_decoder_q8s(params, scales: Dict[str, float], dtype=torch.bfloat16, device="cpu"):
@@ -205,7 +213,7 @@ def _encode(prep: Dict, images: torch.Tensor, dtype: torch.dtype, fused: bool) -
     x = vgg.conv1x1(images.to(dtype), prep["conv0"])  # 1x1 RGB rescale, no relu
     xq = pack_s2d(quantize_static(x, prep["__scales__"]["conv1_1"] / 127.0))
     if fused:
-        xq = encoder_level1(xq, prep["conv1_1"], prep["conv1_2"])
+        xq = encoder_level1(xq, prep["conv1_1"], prep["conv1_2"], prep["__level1__"])
     else:
         xq = qconv3x3_s8(xq, prep["conv1_1"], True, dtype, "edge")
         xq = qconv3x3_s8(xq, prep["conv1_2"], True, dtype, "edge")

@@ -20,7 +20,11 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      fused level-1 encoder and K2 fused level-1 decoder bit for bit; the int8 A/B
      kernels bit for bit at the harnesses' full-width shapes: B1 tiled GEMM
      (int8 -> int32, int8 -> float32, bf16 -> float32, M = 2^18, the five
-     (K, N) of the sweep, cuBLAS timed beside it for comparison only), B2
+     (K, N) of the sweep; beside it, for comparison only, the one library call
+     that computes the same function: ``torch._int_mm`` for int8 -> int32 and
+     ``torch.mm(x, w, out_dtype=torch.float32)`` for bf16 -> float32; the
+     bf16-output ``torch.matmul`` is timed under its own name, since it writes
+     half the output bytes), B2
      direct and Winograd conv (full, dots, tf) at (8, 256, 256, 256 -> 256),
      B3 fused pool1 + conv2_1 (F9, F3) at (128, 256, 256, 256); then ragged
      shapes (odd planes, Cout = 12, one-row tiles, M and N off the tiles);
@@ -55,8 +59,8 @@ rates at batch 32 and a disk-to-disk rate over more than the first batches.
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the phase-4 main paths' counts (K2 is on none of them) and,
 for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
-/ ``library_ms`` are those of its ``timed_shape`` (K3 and K0 list every
-main-path shape under ``shapes``); the last line is ``{"ok": true, "device":
+/ ``library_ms`` are those of its ``timed_shape`` (K3, K0 and B1 list every
+main-path shape, B1 every variant, under ``shapes``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 import argparse
@@ -128,14 +132,16 @@ K0_EDGE = [
     ((1, 2, 2, 64, 64), "reflect", True, True),
 ]
 # ragged K1 / K2 planes (packed pixels): not multiples of the 8 x 16 tile,
-# 18 rows (which ccst_tpu's row-tile rule rejects), one row
-LEVEL1_EDGE = [(1, 18, 10), (2, 7, 33), (1, 1, 3)]
+# 18 rows (which ccst_tpu's row-tile rule rejects), one row; several tiles
+# each way with both edges ragged, exactly one tile, one column of tiles
+LEVEL1_EDGE = [(1, 18, 10), (2, 7, 33), (1, 1, 3), (2, 19, 37), (1, 8, 16), (1, 250, 6)]
 # B1 at the sweep of benchmarks/pallas_int8_mxu.py: (M, K, N); ragged: M not
-# a multiple of the 128-row tile, N not of the 128-column tile
+# a multiple of the 192-row tile, N not of the 128-column tile, K ending
+# inside a 128-byte stage in both element types, fewer rows than one wgmma
 B1_M = 1 << 18
 B1_SHAPES = [(256, 256), (512, 512), (2304, 256), (576, 256), (1152, 128)]
 B1_MAIN = [B1_M, 2304, 256]
-B1_EDGE = [(1000, 48, 24), (77, 2304, 136)]
+B1_EDGE = [(1000, 48, 24), (77, 2304, 136), (300, 80, 40), (5, 256, 128)]
 # B2 at the packed conv1_2 shape of benchmarks/winograd_ab.py; ragged: odd
 # planes (partial 2x2 tiles), one row
 B2_MAIN = (8, 256, 256, 256, 256)
@@ -279,6 +285,7 @@ def check_int8_kernels(torch, dev, gen, results):
         decoder_level1_reference,
         encoder_level1,
         encoder_level1_reference,
+        prepare_encoder_level1,
     )
     from ccst_tpu_torch.kernels.qconv import qconv3x3_s8, qconv3x3_s8_reference
 
@@ -323,7 +330,8 @@ def check_int8_kernels(torch, dev, gen, results):
     for tag, (n, hb, wb) in (("main", (4, 256, 256)), *(("edge", s) for s in LEVEL1_EDGE)):
         c1, c2 = int8_layer(torch, gen, 12, 256, True, dev), int8_layer(torch, gen, 256, 256, True, dev)
         x = int8_input(torch, gen, (n, hb, wb, 12), dev)
-        got = encoder_level1(x, c1, c2)
+        lw = prepare_encoder_level1(c1, c2)  # packed once, as the engine keeps it
+        got = encoder_level1(x, c1, c2, lw)
         torch.cuda.synchronize()
         check_equal(torch, f"K1 {tag} {(n, hb, wb, 12)}", got, encoder_level1_reference(x, c1, c2))
         d2, d1 = int8_layer(torch, gen, 64, 256, True, dev), int8_layer(torch, gen, 256, 12, False, dev)
@@ -338,7 +346,7 @@ def check_int8_kernels(torch, dev, gen, results):
             fail("K1: outputs do not spread, the comparison would say little")
         # per packed pixel: the chain's MACs, the bytes in and out, the weights' bytes
         for k, kernel, plain, macs, px_bytes, w_bytes in (
-            ("K1", lambda: encoder_level1(x, c1, c2),
+            ("K1", lambda: encoder_level1(x, c1, c2, lw),
              lambda: encoder_level1_reference(x, c1, c2), 108 * 256 + 2304 * 256, 12 + 64,
              108 * 256 + 2304 * 256),
             ("K2", lambda: decoder_level1(y, d2, d1),
@@ -353,7 +361,8 @@ def check_int8_kernels(torch, dev, gen, results):
                                    ms=ms, plain_ms=plain_ms, tops=tops, **bd))
             print(f"{k} level1 {(n, hb, wb)} packed: bit-exact | kernel {ms:.4f} ms "
                   f"({tops:.1f} TOPS of the unfused chain's MACs) bound {bd['bound_ms']:.4f} ms by "
-                  f"{bd['bound_by']} plain f64 chain {plain_ms:.4f} ms")
+                  f"{bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% reached) "
+                  f"plain f64 chain {plain_ms:.4f} ms")
     torch.cuda.synchronize()
     print("edge shapes: K0, K1, K2 equal their plain versions")
 
@@ -391,12 +400,19 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
                        tops=tops, peak_share=tops / peak,
                        **bound(2 * m * k * n, peak, (m * k + k * n) * x.element_size() + 4 * m * n))
             line = (f"B1 tiled_mm {name} {(m, k, n)}: bit-exact | kernel {ms:.4f} ms "
-                    f"({tops:.1f} TOPS, {100 * row['peak_share']:.1f}% of peak) "
-                    f"plain f64 {plain_ms:.4f} ms")
-            if name != "i8f32":  # cuBLAS, for comparison only: not the port
-                lib = (lambda: torch._int_mm(x, w)) if name == "i8i32" else (lambda: torch.matmul(x, w))
-                row["cublas_ms"] = time_ms(torch, lib)
-                line += f" cuBLAS {row['cublas_ms']:.4f} ms"
+                    f"({tops:.1f} TOPS, {100 * row['peak_share']:.1f}% of peak) bound "
+                    f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+                    f"({100 * row['bound_ms'] / ms:.1f}% reached) plain f64 {plain_ms:.4f} ms")
+            # the library's call for the same function, for comparison only: not the port
+            if name == "i8i32":
+                row["library_ms"] = time_ms(torch, lambda: torch._int_mm(x, w))
+                line += f" torch._int_mm {row['library_ms']:.4f} ms"
+            elif name == "bf16":
+                row["library_ms"] = time_ms(torch, lambda: torch.mm(x, w, out_dtype=torch.float32))
+                # writes bf16, half the kernel's output bytes: not the same function
+                row["cublas_bf16_out_ms"] = time_ms(torch, lambda: torch.matmul(x, w))
+                line += (f" torch.mm f32 out {row['library_ms']:.4f} ms "
+                         f"(bf16 out {row['cublas_bf16_out_ms']:.4f} ms)")
             results["B1"].append(row)
             print(line)
 
@@ -940,11 +956,12 @@ def main() -> int:
                         and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16"
                         and r.get("variant", "i8i32") == "i8i32"
                         and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False))
-        library_ms = main_row.get("cudnn_bf16_ms", main_row.get("cublas_ms"))
+        library_ms = main_row.get("cudnn_bf16_ms", main_row.get("library_ms"))
         per_shape = [
-            {key: r.get(key) for key in ("layer", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                         "cudnn_bf16_ms") if key in r}
-            for r in rows if k in ("K3", "K0") and "ms" in r
+            {key: r.get(key) for key in ("layer", "variant", "shape", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "cudnn_bf16_ms", "library_ms",
+                                         "cublas_bf16_out_ms") if key in r}
+            for r in rows if k in ("K3", "K0", "B1") and "ms" in r
         ]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,

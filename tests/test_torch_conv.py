@@ -220,3 +220,26 @@ def test_ptxas_report_parses_verbose_output():
         dict(kernel="qconv3x3_s8_wgmma_kernel<128,1,2>", registers=128, smem_bytes=1024,
              spill_store_bytes=124, spill_load_bytes=120),
         dict(kernel="plain", registers=30, smem_bytes=0, spill_store_bytes=0, spill_load_bytes=0)]}
+
+
+def test_compare_smoke_puts_logs_side_by_side():
+    from ccst_tpu_torch.benchmarks.compare_smoke import parse, table
+
+    old = ("K1 level1 (4, 256, 256) packed: bit-exact | kernel 0.9768 ms (331.5 TOPS) bound 0.1636 ms\n"
+           "B1 tiled_mm bf16 (262144, 256, 256): bit-exact | kernel 0.2781 ms (123.5 TOPS)\n"
+           'device rates: {"batch": 4, "ref": {"ms": 6.56, "img_s": 1829.0}}\n'
+           'not a kernel line | kernel 1.0 ms\n')
+    new = ("K1 level1 (4, 256, 256) packed: bit-exact | kernel 0.3532 ms (916.8 TOPS)\n"
+           "K0 qconv conv4_1 (dequant) (4, 64, 64, 256, 512) reflect dequant bf16 relu=True: "
+           "bit-exact | kernel 0.0468 ms (826.0 TOPS)\n"
+           'device rates: {"batch": 4, "ref": {"ms": 6.5, "img_s": 1846.0}}\n')
+    assert parse(old) == {("kernel", "K1", "level1 (4, 256, 256) packed"): 0.9768,
+                          ("kernel", "B1", "tiled_mm bf16 (262144, 256, 256)"): 0.2781,
+                          ("engine", "ref", "batch 4"): 6.56}
+    rows = {tuple(r["row"]): r["ms"] for r in table([old, new])}
+    assert rows[("kernel", "K1", "level1 (4, 256, 256) packed")] == [0.9768, 0.3532]
+    assert rows[("kernel", "B1", "tiled_mm bf16 (262144, 256, 256)")] == [0.2781, None]
+    assert rows[("kernel", "K0", "qconv conv4_1 (dequant) (4, 64, 64, 256, 512) reflect dequant "
+                 "bf16 relu=True")] == [None, 0.0468]
+    assert rows[("engine", "ref", "batch 4")] == [6.56, 6.5]
+

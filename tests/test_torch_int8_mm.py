@@ -10,7 +10,9 @@ any order and equals the exact sum the plain version rounds. Above that a
 float32 sum may round, in an order that differs between the two.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel is held to the
-same plain version on the card by chip_smoke.py.
+same plain version on the card by chip_smoke.py. Its addressing (work items, A
+planes, packed weight stages) is held to the plain version here through the
+numpy model ``int8_mm.simulate_mm``, at ragged M, K and N.
 """
 import importlib.util
 import os
@@ -62,13 +64,54 @@ def test_plain_version_matches_pallas_mm(rng, mxu, variant, k, n):
 
 @pytest.mark.parametrize("dtype,kp", [(torch.int8, 64), (torch.bfloat16, 32)])
 def test_weight_layout(rng, dtype, kp):
-    """Row n of the kernel's matrix is column n of w, k contiguous; padded
-    with zeros to 128 rows and 64 bytes of K."""
-    w = torch.from_numpy(rng.integers(-127, 128, (20, 24)).astype(np.int8)).to(dtype)
+    """The packed weights are the bytes of the kernel's shared-memory stages:
+    element [n tile, chunk, group, n, i] is w[k, column] with k = chunk * (128
+    bytes) + group * (16 bytes) + i, zero where K ends inside a chunk (here
+    halfway through the second) or N inside a tile; unpacking gives w back."""
+    k, n = 3 * kp, 136
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dtype)
     mw = int8_mm.prepare_mm_weight(w)
-    assert mw.wt.shape == (128, kp) and mw.wt.dtype == dtype
-    assert torch.equal(mw.wt[:24, :20], w.t())
-    assert not mw.wt[24:].any() and not mw.wt[:, 20:].any()
+    per_group = 16 // w.element_size()
+    assert mw.wt.shape == (2, 2, 8, int8_mm.TILE_N, per_group) and mw.wt.dtype == dtype
+    assert mw.wt.is_contiguous()
+    t, c, g, col, i = np.indices(tuple(mw.wt.shape))
+    kk, nn = (c * 8 + g) * per_group + i, t * int8_mm.TILE_N + col
+    inside = (kk < k) & (nn < n)
+    want = np.where(inside, w.float().numpy()[np.minimum(kk, k - 1), np.minimum(nn, n - 1)], 0.0)
+    np.testing.assert_array_equal(mw.wt.float().numpy(), want)
+    assert torch.equal(int8_mm.unpack_mm_weight(mw.wt, k, n), w)
+
+
+def test_swizzle_keeps_a_row_in_its_128_bytes():
+    """The 128-byte swizzle permutes the eight 16-byte pieces of a row among
+    themselves, by the row's index in its group of eight; rows 8 apart look
+    alike (the pattern the tensor map writes and the A descriptor reads)."""
+    rows, pieces = np.meshgrid(np.arange(int8_mm.TILE_M), np.arange(8), indexing="ij")
+    where = int8_mm.swizzle128(rows, pieces)
+    assert sorted(where.ravel().tolist()) == list(range(8 * int8_mm.TILE_M))
+    np.testing.assert_array_equal(where // 8, rows)
+    np.testing.assert_array_equal(where[0], np.arange(8))
+    np.testing.assert_array_equal(where[5] % 8, np.arange(8) ^ 5)
+    np.testing.assert_array_equal(where[8:] - where[:-8], 64)
+
+
+# ragged M (below one wgmma, off the 192-row item, over several items), K ending
+# inside a 128-byte stage in both element types, N off the 128-column tile
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("m,k,n", [(300, 80, 40), (5, 256, 128), (77, 272, 136), (513, 48, 24)])
+def test_simulated_kernel_matches_plain_version(rng, variant, m, k, n):
+    """The numpy walk of the kernel's work items, A planes and packed weight
+    stages gives the plain version's result exactly (integer sums; the float32
+    ones stay below 2**24)."""
+    t_in, t_out, _, _ = VARIANTS[variant]
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(t_in)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(t_in)
+    packed = int8_mm.pack_mm_weight(w)
+    acc = np.int64 if t_in == torch.int8 else np.float64
+    got = int8_mm.simulate_mm(x.float().numpy().astype(acc), packed.float().numpy().astype(acc), n)
+    want = int8_mm.tiled_mm_reference(x, w, t_out)
+    assert got.shape == (m, n)
+    np.testing.assert_array_equal(got.astype(want.numpy().dtype), want.numpy())
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(rng):

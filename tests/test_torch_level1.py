@@ -5,7 +5,16 @@ at a packed height the Pallas row-tile rule rejects. Every comparison is bit
 for bit. The weights are the JAX package's own int8-static preparation of
 PRNGKey(0/1) weights with uniform scales, as tests/test_kernels.py builds
 them.
+
+The redesigned K1 runs only on the card, so its addressing is held here
+through the numpy model ``level1.simulate_encoder_level1`` (clamped input
+tile, im2col rows around the clamped halo pixel, the intermediate in the conv
+core's planes, taps as start slots, the permuted output columns and the phase
+max over one thread's registers): exactly the plain version's result at ragged
+sizes, and exactly the Pallas kernel's.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +24,7 @@ import torch
 from ccst_tpu.kernels import level1_pallas as jl1
 from ccst_tpu.models import vgg as jvgg
 from ccst_tpu.models import vgg_fast as jf
-from ccst_tpu_torch.kernels import level1
+from ccst_tpu_torch.kernels import igemm_layout, level1
 from ccst_tpu_torch.kernels.qconv import make_qconv
 
 
@@ -74,6 +83,83 @@ def test_level1_at_heights_the_pallas_rule_rejects(rng, q8s, which):
         got = level1.decoder_level1(torch.from_numpy(x), tq_dec["dconv1_2"], tq_dec["dconv1_1"])
     assert jf._pick_ht(18, 16) is None
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+def _random_layer(rng, cin, cout):
+    """Seeded int8 weights with terms that spread the requantized output over
+    0..127 (a clipped share at both ends)."""
+    wq = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    k = (rng.uniform(0.5, 1.5, cout) * 40 / (127 * 73 * math.sqrt(9 * cin))).astype(np.float32)
+    kb = (rng.standard_normal(cout) * 10).astype(np.float32)
+    return make_qconv(wq, k, kb, True, True, "cpu")
+
+
+def test_level1_column_order_keeps_phases_in_one_thread():
+    """The order is a permutation of conv1_2's 256 phase-major columns, and the
+    eight accumulator registers ``8 (4 jc + phase) + 2 t + e`` of quad lane t
+    in pass p hold the four phases of channels 16 t + 8 p + 2 jc + e."""
+    order = igemm_layout.level1_column_order(64, 128)
+    assert sorted(order.tolist()) == list(range(256))
+    for p in range(2):
+        for t in range(4):
+            mine = [p * 128 + 8 * j + 2 * t + e for j in range(16) for e in range(2)]
+            chans = {int(order[c]) % 64 for c in mine}
+            assert chans == set(range(16 * t + 8 * p, 16 * t + 8 * p + 8))
+            for jc in range(4):
+                for e in range(2):
+                    cols = [p * 128 + igemm_layout.accumulator_column(4 * jc + ph, t, e)
+                            for ph in range(4)]
+                    assert [int(order[c]) for c in cols] == [
+                        ph * 64 + 16 * t + 8 * p + 2 * jc + e for ph in range(4)]
+
+
+def test_level1_weight_layout(rng):
+    """conv1_1 packs as one GEMM chunk with k = (dy, dx, ci) padded to 128;
+    conv1_2 as the conv core's stage tiles with permuted columns, its terms
+    permuted alike; undoing both gives the layers back."""
+    q1, q2 = _random_layer(rng, 12, 256), _random_layer(rng, 256, 256)
+    lw = level1.prepare_encoder_level1(q1, q2)
+    assert lw.w1p.shape == (2, 1, 1, 8, 128, 16) and lw.w2p.shape == (2, 2, 9, 8, 128, 16)
+    assert lw.w1p.is_contiguous() and lw.w2p.is_contiguous()
+    flat = lw.w1p[:, 0, 0].permute(1, 3, 0, 2).reshape(128, 256)   # (k, column)
+    assert torch.equal(flat[:108], q1.wq.reshape(108, 256)) and not flat[108:].any()
+    order = torch.from_numpy(igemm_layout.level1_column_order(64, 128))
+    w2 = igemm_layout.unpack_stage_tiles(lw.w2p, 256, 256)
+    assert torch.equal(w2, q2.wq[..., order])
+    inverse = torch.argsort(order)
+    assert torch.equal(w2[..., inverse], q2.wq)
+    assert torch.equal(lw.k2p[inverse], q2.k) and torch.equal(lw.kb2p[inverse], q2.kb)
+
+
+# one row; below one tile each way; 18 rows; several tiles with both edges
+# ragged; exactly one tile; one column of tiles
+@pytest.mark.parametrize("shape", [(1, 1, 3), (2, 7, 33), (1, 18, 10), (2, 19, 37), (1, 8, 16),
+                                   (1, 50, 6)], ids=lambda s: "x".join(map(str, s)))
+def test_simulated_encoder_matches_plain_version(rng, shape):
+    q1, q2 = _random_layer(rng, 12, 256), _random_layer(rng, 256, 256)
+    lw = level1.prepare_encoder_level1(q1, q2)
+    x = rng.integers(-127, 128, (*shape, 12)).astype(np.int8)
+    want = level1.encoder_level1_reference(torch.from_numpy(x), q1, q2).numpy()
+    assert len(np.unique(want)) > 20  # the outputs spread, so equality says something
+    np.testing.assert_array_equal(level1.simulate_encoder_level1(x, q1, lw), want)
+
+
+def test_simulated_encoder_matches_pallas(rng, q8s):
+    eq, _, tq, _ = q8s
+    x = rng.integers(-127, 128, (2, 16, 16, 12)).astype(np.int8)
+    ref = jl1.encoder_level1(jnp.asarray(x), eq["conv1_1"], eq["conv1_2"], ht=8, interpret=True)
+    lw = level1.prepare_encoder_level1(tq["conv1_1"], tq["conv1_2"])
+    np.testing.assert_array_equal(level1.simulate_encoder_level1(x, tq["conv1_1"], lw),
+                                  np.asarray(ref))
+
+
+def test_encoder_wrapper_takes_prepared_weights(rng):
+    """The engine packs K1's weights once; on the CPU the wrapper ignores them
+    and runs the plain version."""
+    q1, q2 = _random_layer(rng, 12, 256), _random_layer(rng, 256, 256)
+    lw = level1.prepare_encoder_level1(q1, q2)
+    x = torch.from_numpy(rng.integers(-127, 128, (1, 5, 9, 12)).astype(np.int8))
+    assert torch.equal(level1.encoder_level1(x, q1, q2, lw), level1.encoder_level1(x, q1, q2))
 
 
 def _meta_layer(cin, cout, requant):
