@@ -23,17 +23,40 @@ _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
+def _template_args(rest: str) -> list:
+    """The arguments of an Itanium-mangled ``I...E`` list at the start of
+    ``rest``: integer and bool literals (``Li128E`` -> ``128``), ``f`` ->
+    ``float`` and length-prefixed type names (``13__nv_bfloat16``); empty if
+    ``rest`` starts with no such list or holds anything else."""
+    if not rest.startswith("I"):
+        return []
+    args, pos = [], 1
+    while pos < len(rest) and rest[pos] != "E":
+        if m := re.match(r"L[a-z](\d+)E", rest[pos:]):
+            args.append(m.group(1))
+            pos += m.end()
+        elif rest[pos] == "f":
+            args.append("float")
+            pos += 1
+        elif m := re.match(r"\d+", rest[pos:]):
+            size = int(m.group())
+            args.append(rest[pos + m.end():pos + m.end() + size])
+            pos += m.end() + size
+        else:
+            return []
+    return args
+
+
 def short_name(mangled: str) -> str:
     """``...24qconv3x3_s8_wgmma_kernelILi128ELi1ELi2EEEv...`` ->
     ``qconv3x3_s8_wgmma_kernel<128,1,2>``: the length-prefixed name that ends
-    in ``_kernel`` and its integer template arguments; other names as they are."""
+    in ``_kernel`` and its template arguments; other names as they are."""
     for m in re.finditer(r"\d+", mangled):
         for skip in range(len(m.group())):  # the length is a suffix of the digit run
             size = int(m.group()[skip:])
             name = mangled[m.end():m.end() + size]
             if len(name) == size and name.endswith("_kernel") and name.isidentifier():
-                targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[m.end() + size:])
-                args = re.findall(r"L[a-z](\d+)E", targs.group(1)) if targs else []
+                args = _template_args(mangled[m.end() + size:])
                 return name + (f"<{','.join(args)}>" if args else "")
     return mangled
 

@@ -1,4 +1,4 @@
-// Reflection-padded 3x3 convolution + bias + optional ReLU, NHWC bf16, for Hopper.
+// Reflection-padded 3x3 convolution + bias + optional ReLU, NHWC bf16 (and float32), for Hopper.
 //
 // Replaces ccst_tpu/kernels/conv_pallas.py::reflect_conv3x3_fused (_kernel): the
 // torch ReflectionPad2d(1) halo is never materialized, the 3x3 conv is a GEMM
@@ -27,6 +27,12 @@
 // bytes at a time nor fill a k16 step per tap: that shape class keeps the
 // earlier scalar-gather kernel on mma.sync (wmma) tiles below, picked by Cin
 // alone, with its own (Kp, Np) weight matrix.
+//
+// float32 (the engines' verification mode, --dtype float32) is a third kernel
+// of the same gather family: float32 operands, FFMA sums in float32 in the
+// order of K, no tensor cores and so no TF32 rounding anywhere, for any Cin
+// and Cout. It is bound by the float32 FFMA rate (67 TFLOP/s, a fifteenth of
+// the bf16 tensor rate) and is held to being exact, not fast.
 #include <mma.h>
 
 #include "conv_igemm_sm90.cuh"
@@ -185,6 +191,103 @@ reflect_conv3x3_gather_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---- float32: scalar gather, FFMA tiles ------------------------------------
+
+constexpr int FBM = 128;       // output pixels per block
+constexpr int FBN = 64;        // output channels per block
+constexpr int FBK = 32;        // reduction depth per stage
+constexpr int FTHREADS = 256;  // 16 along M x 16 along N, 8 pixels x 4 channels each
+constexpr int FPAD = 4;        // floats of padding per shared row (keeps 16-byte rows)
+
+// The same GEMM as the gather kernel above (M = N*H*W, N = Cout, K = 9*Cin in
+// HWIO order, wk the zero-padded (Kp, Np) matrix), every operand float32 and
+// every product an FFMA into a float32 sum, k ascending.
+__global__ void __launch_bounds__(FTHREADS)
+reflect_conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
+                           const float* __restrict__ bias, float* __restrict__ y, int N, int H,
+                           int W, int Cin, int Cout, int Kp, int Np, int relu) {
+  __shared__ __align__(16) float sa[FBK][FBM + FPAD];  // k-major: a thread reads 8 pixels of one k
+  __shared__ __align__(16) float sb[FBK][FBN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;   // channels tx * 4 .. + 4
+  const int ty = tid >> 4;   // pixels ty * 8 .. + 8
+  const long long HW = (long long)H * W;
+  const long long M = (long long)N * HW;
+  const long long m0 = (long long)blockIdx.x * FBM;
+  const int n0 = blockIdx.y * FBN;
+
+  // A gather: a thread owns one output pixel and half of the FBK reduction
+  // indices; a warp's 32 pixels are neighbours, so its shared stores do not conflict
+  const int a_row = tid & (FBM - 1), a_kk = (tid >> 7) * (FBK / 2);
+  const long long a_m = m0 + a_row;
+  const bool a_ok = a_m < M;
+  const long long a_img = (a_ok ? a_m / HW : 0) * HW;  // first pixel of the image
+  const int a_rem = a_ok ? (int)(a_m - a_img) : 0;
+  const int a_h = a_rem / W, a_w = a_rem - a_h * W;
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < Kp; k0 += FBK) {
+    for (int idx = tid; idx < FBK * (FBN / 4); idx += FTHREADS) {
+      const int row = idx / (FBN / 4), col = (idx - row * (FBN / 4)) * 4;
+      *reinterpret_cast<float4*>(&sb[row][col]) =
+          *reinterpret_cast<const float4*>(wk + (long long)(k0 + row) * Np + n0 + col);
+    }
+    int tap = (k0 + a_kk) / Cin, ci = (k0 + a_kk) - tap * Cin;
+#pragma unroll
+    for (int e = 0; e < FBK / 2; ++e) {
+      float v = 0.0f;
+      if (a_ok && tap < 9) {  // tap 9 is the zero padding of K
+        const int hh = pad_index(a_h + tap / 3 - 1, H, 1);
+        const int ww = pad_index(a_w + tap % 3 - 1, W, 1);
+        v = x[(a_img + (long long)hh * W + ww) * Cin + ci];
+      }
+      sa[a_kk + e][a_row] = v;
+      if (++ci == Cin) { ci = 0; ++tap; }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&sa[kk][ty * 8]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&sa[kk][ty * 8 + 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&sb[kk][tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: bias + ReLU in float32, 4 channels (16 bytes) per store where Cout allows
+  const int co = n0 + tx * 4;
+  if (co >= Cout) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long m = m0 + ty * 8 + i;
+    if (m >= M) continue;
+    float* dst = y + m * Cout + co;
+    float out[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = acc[i][j] + (co + j < Cout ? bias[co + j] : 0.0f);
+      out[j] = relu ? fmaxf(v, 0.0f) : v;
+    }
+    if ((Cout & 3) == 0) {
+      *reinterpret_cast<float4*>(dst) = make_float4(out[0], out[1], out[2], out[3]);
+    } else {
+      for (int j = 0; j < 4 && co + j < Cout; ++j) dst[j] = out[j];
+    }
+  }
+}
+
 template <int BN, int TPS>
 cudaError_t launch_wgmma(const void* x, const void* wp, const void* bias, void* y, int N, int H,
                          int W, int Cin, int Cout, int relu, cudaStream_t st) {
@@ -225,5 +328,20 @@ extern "C" int ccst_reflect_conv3x3_bf16(const void* x, const void* wp, const vo
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wp),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), N, H, W, Cin, Cout, Kp,
       Np, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 entry point: x, bias, y float32; wp the float32
+// (roundup(9*Cin, 32), roundup(Cout, 64)) matrix of kernels/conv.py::pack_weight,
+// for any Cin. Exact float32 (FFMA, no tensor cores). Same contract otherwise.
+extern "C" int ccst_reflect_conv3x3_f32(const void* x, const void* wp, const void* bias, void* y,
+                                        int N, int H, int W, int Cin, int Cout, int relu,
+                                        void* stream) {
+  const long long M = (long long)N * H * W;
+  const int Kp = (9 * Cin + FBK - 1) / FBK * FBK, Np = (Cout + FBN - 1) / FBN * FBN;
+  dim3 grid((unsigned)((M + FBM - 1) / FBM), (unsigned)(Np / FBN));
+  reflect_conv3x3_f32_kernel<<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wp), static_cast<const float*>(bias),
+      static_cast<float*>(y), N, H, W, Cin, Cout, Kp, Np, relu);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,11 +27,19 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: pointers and the stream as c_void_p, ints as c_int
 SIGNATURES = {
     # x, wp, bias, y, N, H, W, Cin, Cout, relu, stream
     "ccst_reflect_conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "ccst_reflect_conv3x3_f32": [_P] * 4 + [_I] * 6 + [_P],
+    # x, y, s_mean, s_std, N, HW, C, S, cluster, rows_per_block, resident, is_f32,
+    # alpha, eps, n_var, stream
+    "ccst_adain": [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P],
+    # x, partials, out, tickets, R, C, chunk, is_f32, stream
+    "ccst_channel_moments": [_P] * 4 + [_L] + [_I] * 3 + [_P],
+    # stream
+    "ccst_empty_launch": [_P],
     # x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, out_kind, stream
     "ccst_qconv3x3_s8": [_P] * 5 + [_I] * 8 + [_P],
     # x, w1, k1, kb1, w2, k2, kb2, y, N, Hb, Wb, Cin, Kp1, Kp2, Cout, pool, stream

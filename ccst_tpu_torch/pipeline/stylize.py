@@ -7,9 +7,11 @@ style bank.
 
   - :class:`StylizeEngine`: weights cast once to the compute dtype on one
     device; encode -> fused AdaIN + alpha blend -> decode, through the kernels
-    of ``kernels/`` on the card. ``stylize_multi`` encodes a batch once and
-    decodes it under S style banks. Engines:
-      ``ref``          bf16 (or f32) reference executor, conv kernel K3;
+    of ``kernels/`` on the card. ``stylize_multi`` encodes a batch once,
+    restyles the features under the S style banks in one AdaIN launch and
+    decodes each. Engines:
+      ``ref``          bf16 reference executor (float32: the exact parity
+                       mode for verification), conv kernel K3;
       ``int8-static``  int8 end to end with calibrated static scales
                        (``models/vgg_fast.py``), int8 conv kernel K0;
       ``int8-fused``   ``int8-static`` with the encoder's level-1 stage as one
@@ -39,7 +41,7 @@ import torch
 from ccst_tpu_torch.config import StylizeConfig, dataset_spec
 from ccst_tpu_torch.data.lists import parse_list, stylized_output_path, train_list_path
 from ccst_tpu_torch.data.loader import ImageBatchLoader, load_image, save_image_u8
-from ccst_tpu_torch.kernels.adain import fused_adain
+from ccst_tpu_torch.kernels.adain import fused_adain, fused_adain_multi
 from ccst_tpu_torch.kernels.moments import channel_moments
 from ccst_tpu_torch.models import vgg, vgg_fast
 from ccst_tpu_torch.pipeline.style_bank import load_style_stats
@@ -169,13 +171,12 @@ class StylizeEngine:
     @torch.no_grad()
     def stylize_multi(self, images, s_means, s_stds, alpha: float = 1.0) -> torch.Tensor:
         """(B, H, W, 3) content x (S, C) style banks -> (S, B, H, W, 3): one
-        encode, S decodes."""
+        encode, one AdaIN launch for the S banks, S decodes."""
         s_means, s_stds = self._stats(s_means), self._stats(s_stds)
         self._ensure_calibrated(images, s_means, s_stds)
         feat = self._encode(self._as_input(images))
-        return torch.stack(
-            [self._restyle(feat, m, s, alpha) for m, s in zip(s_means, s_stds)]
-        )
+        restyled = fused_adain_multi(feat, s_means, s_stds, alpha=alpha)
+        return torch.stack([self._finish(self._decode(t)) for t in restyled])
 
     @torch.no_grad()
     def style_stats_of(self, image) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,8 +15,13 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      (the larger of its operations over the card's dense peak and its bytes,
      each input read and each output written once, over 3.35 TB/s): K3 conv at
      every distinct shape of the ``ref`` engine at 512 px, batch 4, cuDNN's
-     bf16 conv timed beside it for comparison only, K4 AdaIN, K5 moments with
-     their tolerances; K0 int8 conv at every shape of the int8 engines, K1
+     bf16 conv timed beside it for comparison only, and its exact float32
+     route (TF32 off everywhere, rtol = atol = 1e-4) at conv1_1, conv3_2,
+     dconv1_1 and two ragged shapes; K4 AdaIN for one and three style banks
+     (bf16 and float32, alpha 1.0 and 0.6, the resident and the streamed
+     variant, batch 32 and the 256 px map); K5 moments (bf16 and float32,
+     C = 512 and 500, batch 32; the same bits from two runs), each beside the
+     time of an empty kernel launched the same way; K0 int8 conv at every shape of the int8 engines, K1
      fused level-1 encoder and K2 fused level-1 decoder bit for bit; the int8 A/B
      kernels bit for bit at the harnesses' full-width shapes: B1 tiled GEMM
      (int8 -> int32, int8 -> float32, bf16 -> float32, M = 2^18, the five
@@ -31,12 +36,14 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
   4. the main paths through the CLI entry point, in this process, each with
      every launch count zeroed before it and read after it: ``style-bank``
      for four synthetic PACS domains, ``stylize --target photo --mode
-     overall`` (bf16 ``ref`` engine), ``calibrate --target photo``, then
+     overall`` (bf16 ``ref`` engine), ``calibrate --target photo``,
      ``stylize --engine int8-fused`` at 512 px in bfloat16 with seeded random
-     weights; outputs must exist and be finite, and every kernel's launch
+     weights, then ``style-bank`` and ``stylize --engine ref`` once more with
+     ``--dtype float32`` (the parity mode); outputs must exist and be finite, and every kernel's launch
      count must be exactly what the path implies;
   5. on one 512 px batch: the ``ref`` path against the same path composed
-     from the plain versions (MAE <= 1e-3); ``int8-fused`` against its plain
+     from the plain versions (MAE <= 1e-3), and the same in float32 (MAE <=
+     1e-4); ``int8-fused`` against its plain
      composition (MAE <= 1e-3), against ``int8-static`` (bit for bit) and
      against ``ref`` (PSNR > 20 dB); ``apply_decoder_q8s_fused`` (K2) against
      ``apply_decoder_q8s`` (bit for bit); device-only ``stylize_multi`` times
@@ -59,8 +66,13 @@ rates at batch 32 and a disk-to-disk rate over more than the first batches.
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the phase-4 main paths' counts (K2 is on none of them) and,
 for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
-/ ``library_ms`` are those of its ``timed_shape`` (K3, K0 and B1 list every
-main-path shape, B1 every variant, under ``shapes``); the last line is ``{"ok": true, "device":
+/ ``library_ms`` are those of its ``timed_shape``, the one the main paths
+launch it at (K4's and K5's is relu4_1 of a ``--batch-size`` batch, K4's with
+all three banks in the launch, ``timed_styles``; their ``ms`` is the card's
+own time, from a replayed CUDA graph; ``call_ms`` under ``shapes`` is the
+host's rate of calls. K3, K0 and B1 list every
+main-path shape, K3 also its float32 rows, B1 every variant, K4 and K5 every
+timed case, under ``shapes``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 import argparse
@@ -76,6 +88,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # same bf16 operands, f32 sums in another order
+F32_TOL = dict(rtol=1e-5, atol=1e-5)   # K4 in float32: the same maths, sums in another order
+# K3 in float32: float32 sums of up to 9 x 512 products in another order than
+# cuDNN's (TF32 off on both sides)
+K3_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+F32_MAE_BAR = 1e-4                     # float32 whole path against its plain path
 MAE_BAR = 1e-3                         # ROADMAP.md / BASELINE stylize bar
 MIN_SPREAD = 0.5                       # the bar above assumes outputs spread over [0, 1]
 PSNR_BAR = 20.0                        # int8 vs bf16 ref, ccst_tpu's tests/test_vgg_fast.py bar
@@ -105,6 +122,36 @@ K3_SHAPES = [
     ("ragged", (2, 37, 53, 64, 128)),
 ]
 K3_MAIN = (4, 512, 512, 64, 64)
+# K3's float32 route: the first, a middle and the last layer of the 512 px
+# path, then ragged planes with Cin and Cout off every vector width
+K3_F32_SHAPES = [
+    ("conv1_1", (4, 512, 512, 3, 64)),
+    ("conv3_2..3_4, dconv3_4..3_2", (4, 128, 128, 256, 256)),
+    ("dconv1_1", (4, 512, 512, 64, 3)),
+    ("ragged", (2, 37, 53, 64, 128)),
+    ("ragged", (3, 17, 9, 5, 7)),
+]
+def relu4_1_shape(batch):
+    """What K4 and K5 are given on the 512 px main paths: a batch's relu4_1."""
+    return (batch, SIZE // 8, SIZE // 8, 512)
+
+
+# K4: (shape, dtype name, alpha), each for S = 1 and S = 3 style banks, after
+# the main paths' own shape ``relu4_1_shape(--batch-size)`` in both types and
+# blends: relu4_1 of the 512 px path at batch 4 and 32, of the 256 px path, and
+# maps above 119 x 119, which the kernel streams
+K4_CASES = [
+    ((4, 64, 64, 512), "bfloat16", 1.0), ((32, 64, 64, 512), "bfloat16", 1.0),
+    ((4, 32, 32, 512), "bfloat16", 1.0),
+    ((2, 128, 128, 64), "bfloat16", 0.6), ((1, 128, 128, 48), "float32", 1.0),
+]
+# K5: (shape, dtype name), after the main paths' own shape in both types: the
+# bank's batch of 3 (also with rows that are not 16-byte aligned) and of 32
+K5_CASES = [
+    ((3, 64, 64, 512), "bfloat16"), ((3, 64, 64, 500), "bfloat16"), ((3, 64, 64, 512), "float32"),
+    ((3, 64, 64, 500), "float32"), ((32, 64, 64, 512), "bfloat16"),
+]
+SMALL_REPS = 200  # launches a timing run of the sub-0.1 ms kernels (K4: 50 of S banks)
 # K0 at the shapes the int8 engines launch at batch 4, 512 px:
 # (layer, (N, H, W, Cin, Cout), pad, requant, relu)
 K0_SHAPES = [
@@ -249,14 +296,145 @@ def read_images(paths):
 
 
 def cudnn_bf16_conv(torch, x, cw):
-    """A timing reference only, on no path: cuDNN's bf16 conv (channels_last)
-    on an input reflect-padded beforehand, bias in the conv, no ReLU."""
+    """A timing reference only, on no path: cuDNN's conv in x's dtype
+    (channels_last) on an input reflect-padded beforehand, bias in the conv,
+    no ReLU."""
     F = torch.nn.functional
     xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     xp = xp.contiguous(memory_format=torch.channels_last)
     w = cw.w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     b = cw.b.to(x.dtype)
     return lambda: F.conv2d(xp, w, b)
+
+
+def check_small_kernels(torch, dev, gen, results, batch):
+    """Phase 3, K4 and K5: the fused AdaIN for one and three style banks and
+    the channel moments against their plain versions, first at the shape the
+    main paths launch them at with ``batch`` images a batch, with times beside the
+    bound and beside an empty kernel launched through the same ctypes route.
+    Both kernels take less time on the card than the host needs to make a
+    call, so each gets two times: ``ms``, the card's own, from calls captured
+    into one CUDA graph and replayed, and ``call_ms``, back-to-back calls of
+    the wrapper between two events, which is the host's rate."""
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
+    from ccst_tpu_torch.kernels import _build
+    from ccst_tpu_torch.kernels.adain import (
+        fused_adain,
+        fused_adain_multi,
+        fused_adain_multi_reference,
+        fused_adain_reference,
+        plan_adain,
+    )
+    from ccst_tpu_torch.kernels.moments import channel_moments, channel_moments_reference
+
+    lib = _build.library()
+
+    def device_ms(fn, reps):
+        return graph_ms(torch, fn, reps, 5)["median"]
+
+    def empty_launch():  # the stream is read at every call: a graph is captured on its own
+        if lib.ccst_empty_launch(torch.cuda.current_stream(dev).cuda_stream):
+            fail("the empty kernel did not launch")
+
+    empty_ms = device_ms(empty_launch, SMALL_REPS)
+    empty_call_ms = time_ms(torch, empty_launch, reps=SMALL_REPS)
+    print(f"empty kernel through the same ctypes route: {empty_ms:.4f} ms on the device (CUDA "
+          f"graph of {SMALL_REPS}), {empty_call_ms:.4f} ms a call from the host: the floors "
+          f"under K4's and K5's times")
+
+    path_shape = relu4_1_shape(batch)
+    k4_cases = [(path_shape, t, alpha) for t in ("bfloat16", "float32") for alpha in (1.0, 0.6)]
+    for shape, dtype_name, alpha in dict.fromkeys(k4_cases + K4_CASES):
+        dtype = getattr(torch, dtype_name)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        feat = (torch.randn(shape, generator=gen) * 2 + 1).to(dev, dtype)
+        s_means = torch.randn((3, shape[-1]), generator=gen).to(dev)
+        s_stds = (torch.rand((3, shape[-1]), generator=gen) + 0.1).to(dev)
+        plan = plan_adain(shape[1] * shape[2])
+        variant = "resident" if plan.resident else "streamed"
+        single_ms = None
+        for s in (1, 3):
+            kernel = lambda: fused_adain_multi(feat, s_means[:s], s_stds[:s], alpha)
+            plain = lambda: fused_adain_multi_reference(feat, s_means[:s], s_stds[:s], alpha)
+            got = kernel()
+            torch.cuda.synchronize()
+            label = f"{shape} {dtype} alpha={alpha}" + (f" S={s}" if s > 1 else "")
+            mx, mean = check_close(f"K4 {label}", got, plain(), **tol)
+            if s == 1:  # the single-style wrapper is the S = 1 case of the same kernel
+                check_equal(torch, f"K4 fused_adain {label}",
+                            fused_adain(feat, s_means[0], s_stds[0], alpha), got[0])
+            ms, call_ms = device_ms(kernel, 50), time_ms(torch, kernel, reps=50)
+            plain_ms = time_ms(torch, plain, reps=5, runs=3)
+            # a few float32 operations an element and style; the tensor in once, out s times
+            bd = bound((4 + 6 * s) * feat.numel(), F32_PEAK_TFLOPS,
+                       (1 + s) * feat.numel() * feat.element_size())
+            row = dict(shape=list(shape), dtype=str(dtype), alpha=alpha, styles=s, kernel_variant=variant,
+                       cluster=plan.cluster, max_abs_err=mx, mean_abs_err=mean, ms=ms,
+                       call_ms=call_ms, plain_ms=plain_ms, empty_launch_ms=empty_ms, **bd)
+            line = (f"K4 adain {label}: max {mx:.3e} mean {mean:.3e} ({variant}, cluster of "
+                    f"{plan.cluster}) | kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a call; "
+                    f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                    f"({100 * bd['bound_ms'] / ms:.1f}% reached; empty launch "
+                    f"{100 * empty_ms / ms:.1f}% of it) plain {plain_ms:.4f} ms")
+            if s == 1:
+                single_ms = ms
+            else:  # what S launches of the single-style kernel cost, as the path ran before
+                row["single_launches_ms"] = s * single_ms
+                line += f" {s} single-style launches {s * single_ms:.4f} ms"
+            results["K4"].append(row)
+            print(line)
+        del feat, got
+
+    k5_cases = [(path_shape, "bfloat16"), (path_shape, "float32")]
+    for shape, dtype_name in dict.fromkeys(k5_cases + K5_CASES):
+        dtype = getattr(torch, dtype_name)
+        feat = (torch.randn(shape, generator=gen) * 3 + 10).to(dev, dtype)
+        mean, m2, count = channel_moments(feat)
+        torch.cuda.synchronize()
+        r_mean, r_m2, r_count = channel_moments_reference(feat)
+        if count.item() != r_count.item():
+            fail(f"K5 {shape}: count {count.item()} != {r_count.item()}")
+        mx1, av1 = check_close(f"K5 mean {shape} {dtype}", mean, r_mean, rtol=1e-5, atol=0.0)
+        mx2, av2 = check_close(f"K5 m2 {shape} {dtype}", m2, r_m2, rtol=1e-4, atol=0.0)
+        # a second and third launch: the ticket was reset, and no sum depends on
+        # which block merged, so the bits are the same
+        for run in (2, 3):
+            for name, a, b in zip(("mean", "m2", "count"), channel_moments(feat), (mean, m2, count)):
+                check_equal(torch, f"K5 {name} {shape} {dtype}, run {run} against run 1", a, b)
+        ms = device_ms(lambda: channel_moments(feat), SMALL_REPS)
+        call_ms = time_ms(torch, lambda: channel_moments(feat), reps=SMALL_REPS)
+        plain = time_ms(torch, lambda: channel_moments_reference(feat), reps=20, runs=3)
+        # one read of the tensor, a few float32 operations an element
+        bd = bound(6 * feat.numel(), F32_PEAK_TFLOPS, feat.numel() * feat.element_size())
+        results["K5"].append(dict(shape=list(shape), dtype=str(dtype), max_abs_err=max(mx1, mx2),
+                                  mean_max_abs_err=mx1, m2_max_abs_err=mx2, ms=ms, call_ms=call_ms,
+                                  plain_ms=plain, empty_launch_ms=empty_ms, **bd))
+        print(f"K5 moments {shape} {dtype}: mean max {mx1:.3e} avg {av1:.3e}, "
+              f"m2 max {mx2:.3e} avg {av2:.3e}, three runs the same bits "
+              f"| kernel {ms:.4f} ms on the device (CUDA graph of {SMALL_REPS} launches), "
+              f"{call_ms:.4f} ms a call; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+              f"({100 * bd['bound_ms'] / ms:.1f}% reached; empty launch "
+              f"{100 * empty_ms / ms:.1f}% of it) plain {plain:.4f} ms")
+
+    # ragged edges, correctness only: channels off the 128-byte group, one
+    # pixel (K5 only: its variance is 0 / max(1 - ddof, 1)), bf16 rows that are
+    # not 16-byte aligned (C = 500 and 100), two banks, the population variance
+    for shape, dtype in (((2, 7, 9, 100), torch.float32), ((1, 1, 1, 16), torch.float32),
+                         ((2, 5, 11, 500), torch.bfloat16), ((1, 33, 35, 100), torch.bfloat16)):
+        feat = (torch.randn(shape, generator=gen) + 3).to(dev, dtype)
+        s_means = torch.randn((2, shape[-1]), generator=gen).to(dev)
+        s_stds = (torch.rand((2, shape[-1]), generator=gen) + 0.5).to(dev)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        if shape[1] * shape[2] > 1:
+            check_close(f"K4 edge {shape}", fused_adain(feat, s_means[0], s_stds[0], 0.6),
+                        fused_adain_reference(feat, s_means[0], s_stds[0], 0.6), **tol)
+            check_close(f"K4 edge {shape} S=2 ddof=0",
+                        fused_adain_multi(feat, s_means, s_stds, 0.6, ddof=0),
+                        fused_adain_multi_reference(feat, s_means, s_stds, 0.6, ddof=0), **tol)
+        for got, want in zip(channel_moments(feat), channel_moments_reference(feat)):
+            check_close(f"K5 edge {shape}", got, want, rtol=1e-4, atol=1e-5)
+    torch.cuda.synchronize()
+    print("edge shapes: K4, K5 agree with their plain versions")
 
 
 def int8_layer(torch, gen, cin, cout, requant, dev):
@@ -531,7 +709,11 @@ def main() -> int:
     sys.path.insert(0, HERE)
 
     from ccst_tpu_torch.kernels import _build
-    from ccst_tpu_torch.kernels.adain import fused_adain, fused_adain_reference
+    from ccst_tpu_torch.kernels.adain import (
+        fused_adain,
+        fused_adain_multi,
+        fused_adain_reference,
+    )
     from ccst_tpu_torch.kernels.int8_mm import tiled_mm
     from ccst_tpu_torch.kernels.pool_conv import pool_conv_fused
     from ccst_tpu_torch.kernels.winograd import conv_direct, conv_wino
@@ -545,7 +727,7 @@ def main() -> int:
         encoder_level1,
         encoder_level1_reference,
     )
-    from ccst_tpu_torch.kernels.moments import channel_moments, channel_moments_reference
+    from ccst_tpu_torch.kernels.moments import channel_moments
     from ccst_tpu_torch.kernels.qconv import qconv3x3_s8, qconv3x3_s8_reference
 
     # -- 1. device ---------------------------------------------------------
@@ -604,46 +786,41 @@ def main() -> int:
                 print(f"K3 conv {layer} {(n, h, w, cin, cout)} relu=False: max {mx:.3e} mean {mean:.3e}")
             results["K3"].append(row)
 
-    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, dict(rtol=1e-5, atol=1e-5))):
-        for alpha in (1.0, 0.6):
-            feat = (torch.randn((4, 64, 64, 512), generator=gen) * 2 + 1).to(dev, dtype)
-            s_mean = torch.randn((512,), generator=gen).to(dev)
-            s_std = (torch.rand((512,), generator=gen) + 0.1).to(dev)
-            got = fused_adain(feat, s_mean, s_std, alpha)
+    # K3's exact float32 route (the engines' --dtype float32): FFMA sums, TF32
+    # off on both sides, cuDNN's float32 conv timed beside it for comparison only
+    for layer, (n, h, w, cin, cout) in K3_F32_SHAPES:
+        x = torch.randn((n, h, w, cin), generator=gen).to(dev)
+        spread = (1.0 / (9 * cin)) ** 0.5
+        wt = (torch.rand((3, 3, cin, cout), generator=gen) * 2 - 1) * spread
+        b = (torch.rand((cout,), generator=gen) * 2 - 1) * spread
+        cw = prepare_conv(wt, b, torch.float32, dev)
+        bd = conv_bound((n, h, w, cin, cout), F32_PEAK_TFLOPS, 4, 4)
+        flop = 2 * n * h * w * 9 * cin * cout
+        for relu in (True, False):
+            got = reflect_conv3x3(x, cw, relu)
             torch.cuda.synchronize()
-            want = fused_adain_reference(feat, s_mean, s_std, alpha)
-            mx, mean = check_close(f"K4 {dtype} alpha={alpha}", got, want, **tol)
-            ms = time_ms(torch, lambda: fused_adain(feat, s_mean, s_std, alpha), reps=50)
-            plain = time_ms(torch, lambda: fused_adain_reference(feat, s_mean, s_std, alpha), reps=50)
-            # two passes of a few float32 operations an element; the tensor in and out
-            bd = bound(10 * feat.numel(), F32_PEAK_TFLOPS, 2 * feat.numel() * feat.element_size())
-            results["K4"].append(dict(shape=[4, 64, 64, 512], dtype=str(dtype), alpha=alpha,
-                                      max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain, **bd))
-            print(f"K4 adain (4, 64, 64, 512) {dtype} alpha={alpha}: max {mx:.3e} "
-                  f"mean {mean:.3e} | kernel {ms:.4f} ms bound {bd['bound_ms']:.4f} ms by "
-                  f"{bd['bound_by']} plain {plain:.4f} ms")
+            want = reflect_conv3x3_reference(x, cw.w, cw.b, relu)
+            mx, mean = check_close(f"K3 float32 {(n, h, w, cin, cout)} relu={relu}", got, want,
+                                   **K3_F32_TOL)
+            row = dict(layer=layer, shape=[n, h, w, cin, cout], relu=relu, dtype="torch.float32",
+                       max_abs_err=mx, mean_abs_err=mean)
+            if relu and layer != "ragged":
+                ms = time_ms(torch, lambda: reflect_conv3x3(x, cw, True), reps=3, runs=3)
+                plain = time_ms(torch, lambda: reflect_conv3x3_reference(x, cw.w, cw.b, True),
+                                reps=2, runs=3)
+                lib = time_ms(torch, cudnn_bf16_conv(torch, x, cw), reps=2, runs=3)
+                row.update(ms=ms, plain_ms=plain, cudnn_f32_ms=lib, **bd)
+                print(f"K3 conv float32 {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean {mean:.3e} "
+                      f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s) bound "
+                      f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% "
+                      f"reached) cuDNN float32, TF32 off {lib:.4f} ms plain {plain:.4f} ms")
+            else:
+                print(f"K3 conv float32 {layer} {(n, h, w, cin, cout)} relu={relu}: "
+                      f"max {mx:.3e} mean {mean:.3e}")
+            results["K3"].append(row)
+    del x, got, want
 
-    for dtype in (torch.bfloat16, torch.float32):
-        for shape in ((3, 64, 64, 512), (3, 64, 64, 500)):
-            feat = (torch.randn(shape, generator=gen) * 3 + 10).to(dev, dtype)
-            mean, m2, count = channel_moments(feat)
-            torch.cuda.synchronize()
-            r_mean, r_m2, r_count = channel_moments_reference(feat)
-            if count.item() != r_count.item():
-                fail(f"K5 {shape}: count {count.item()} != {r_count.item()}")
-            mx1, av1 = check_close(f"K5 mean {shape} {dtype}", mean, r_mean, rtol=1e-5, atol=0.0)
-            mx2, av2 = check_close(f"K5 m2 {shape} {dtype}", m2, r_m2, rtol=1e-4, atol=0.0)
-            ms = time_ms(torch, lambda: channel_moments(feat), reps=50)
-            plain = time_ms(torch, lambda: channel_moments_reference(feat), reps=50)
-            # one read of the tensor, a few float32 operations an element
-            bd = bound(6 * feat.numel(), F32_PEAK_TFLOPS, feat.numel() * feat.element_size())
-            results["K5"].append(dict(shape=list(shape), dtype=str(dtype), max_abs_err=max(mx1, mx2),
-                                      mean_max_abs_err=mx1, m2_max_abs_err=mx2, ms=ms, plain_ms=plain,
-                                      **bd))
-            print(f"K5 moments {shape} {dtype}: mean max {mx1:.3e} avg {av1:.3e}, "
-                  f"m2 max {mx2:.3e} avg {av2:.3e} "
-                  f"| kernel {ms:.4f} ms bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-                  f"plain {plain:.4f} ms")
+    check_small_kernels(torch, dev, gen, results, batch)
 
     # ragged edges, correctness only: the smallest reflectable plane (below the
     # 8 x 16 tile), planes that are no multiple of it with Cout = 3 and N > 1,
@@ -658,16 +835,8 @@ def main() -> int:
         torch.cuda.synchronize()
         check_close(f"K3 edge {(n, h, w, cin, cout)}", got,
                     reflect_conv3x3_reference(x, cw.w, cw.b, True), **BF16_TOL)
-    for shape in ((2, 7, 9, 100), (1, 1, 1, 16)):
-        feat = (torch.randn(shape, generator=gen) + 3).to(dev)
-        s_mean, s_std = torch.randn(shape[-1:], generator=gen).to(dev), torch.ones(shape[-1:]).to(dev)
-        if shape[1] * shape[2] > 1:
-            check_close(f"K4 edge {shape}", fused_adain(feat, s_mean, s_std, 0.6),
-                        fused_adain_reference(feat, s_mean, s_std, 0.6), rtol=1e-5, atol=1e-5)
-        for got, want in zip(channel_moments(feat), channel_moments_reference(feat)):
-            check_close(f"K5 edge {shape}", got, want, rtol=1e-4, atol=1e-5)
     torch.cuda.synchronize()
-    print("edge shapes: K3, K4, K5 agree with their plain versions")
+    print("edge shapes: K3 agrees with its plain version")
 
     check_int8_kernels(torch, dev, gen, results)
     check_ab_kernels(torch, dev, gen, results)
@@ -680,7 +849,7 @@ def main() -> int:
     from ccst_tpu_torch.pipeline.style_bank import load_style_stats
     from ccst_tpu_torch.pipeline.stylize import StylizeEngine
 
-    counters = {"K3": reflect_conv3x3, "K4": fused_adain, "K5": channel_moments,
+    counters = {"K3": reflect_conv3x3, "K4": fused_adain_multi, "K5": channel_moments,
                 "K0": qconv3x3_s8, "K1": encoder_level1, "K2": decoder_level1,
                 "B1": tiled_mm, "B2-direct": conv_direct, "B2-wino": conv_wino,
                 "B3": pool_conv_fused}
@@ -700,12 +869,14 @@ def main() -> int:
         convert.save_npz(dec_path, dec)
         stats_dir = os.path.join(root, "style_stats")
         int8_root = os.path.join(root, "int8")
+        f32_root = os.path.join(root, "float32")  # the parity mode's banks and outputs
+        f32_stats = os.path.join(f32_root, "style_stats")
 
-        def common(out_root):
+        def common(out_root, dtype="bfloat16", stats=stats_dir):
             return [
                 "--dataset", "pacs", "--list-root", root, "--data-root", root,
-                "--output-root", out_root, "--style-stats-dir", stats_dir,
-                "--image-size", str(SIZE), "--batch-size", str(batch), "--dtype", "bfloat16",
+                "--output-root", out_root, "--style-stats-dir", stats,
+                "--image-size", str(SIZE), "--batch-size", str(batch), "--dtype", dtype,
                 "--vgg-weights", enc_path, "--decoder-weights", dec_path, "--device", "cuda",
             ]
 
@@ -717,12 +888,17 @@ def main() -> int:
             ("style-bank", ["style-bank", *common(root)],
              {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
             ("stylize ref", ["stylize", *common(root), *target, "--mode", "overall"],
-             {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_styles * n_content_batches}),
+             {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}),
             ("calibrate", ["calibrate", *common(root), *target, "--engine", "int8-fused"], {}),
             ("stylize int8-fused", ["stylize", *common(int8_root), *target, "--mode", "overall",
                                     "--engine", "int8-fused"],
              {"K0": (7 + 9 * n_styles) * n_content_batches, "K1": n_content_batches,
-              "K4": n_styles * n_content_batches}),
+              "K4": n_content_batches}),
+            ("style-bank float32", ["style-bank", *common(f32_root, "float32", f32_stats)],
+             {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
+            ("stylize ref float32", ["stylize", *common(f32_root, "float32", f32_stats), *target,
+                                     "--mode", "overall"],
+             {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}),
         )
         for step, argv, expect in steps:
             expect = {k: expect.get(k, 0) for k in counters}
@@ -749,19 +925,27 @@ def main() -> int:
 
         for d in DOMAINS:
             mean, std = load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
-            if mean.shape != (512,) or not (np.isfinite(mean).all() and np.isfinite(std).all()):
-                fail(f"bank {d}: bad shape or non-finite values")
-            with open(os.path.join(stats_dir, "pacs", f"{d}_style_comp_time.json")) as f:
-                t = json.load(f)
-            print(f"style-bank {d}: {t['images']} images in {t['seconds']:.3f} s = "
-                  f"{t['images_per_sec']:.1f} img/s at {SIZE} px")
+            mean32, std32 = load_style_stats(os.path.join(f32_stats, "pacs", f"{d}_mean_std.npz"))
+            for m, sd in ((mean, std), (mean32, std32)):
+                if m.shape != (512,) or not (np.isfinite(m).all() and np.isfinite(sd).all()):
+                    fail(f"bank {d}: bad shape or non-finite values")
+            # the bf16 bank against the float32 one: the same images, bf16 features
+            if not np.allclose(mean, mean32, rtol=5e-2, atol=5e-3):
+                fail(f"bank {d}: the bfloat16 bank is off the float32 bank by "
+                     f"{np.abs(mean - mean32).max():.3e}")
+            for tag, sdir in (("bfloat16", stats_dir), ("float32", f32_stats)):
+                with open(os.path.join(sdir, "pacs", f"{d}_style_comp_time.json")) as f:
+                    t = json.load(f)
+                print(f"style-bank {d} {tag}: {t['images']} images in {t['seconds']:.3f} s = "
+                      f"{t['images_per_sec']:.1f} img/s at {SIZE} px")
         scales_path = os.path.join(stats_dir, "pacs", "photo_q8_scales.json")
         scales = vgg_fast.load_scales(scales_path,
                                       expect_fingerprint=vgg_fast.weights_fingerprint(enc, dec))
         if len(scales) != 18 or not all(math.isfinite(v) and v > 0 for v in scales.values()):
             fail(f"calibrate wrote bad scales: {scales}")
         print(f"calibrate: {len(scales)} scales, {min(scales.values()):.4g}..{max(scales.values()):.4g}")
-        for engine_name, out_root in (("ref", root), ("int8-fused", int8_root)):
+        for engine_name, out_root in (("ref", root), ("int8-fused", int8_root),
+                                      ("ref float32", f32_root)):
             out_dir = os.path.join(out_root, "PACS", "all_style_transferred_Overall", "photo")
             outputs = [os.path.join(dp, f) for dp, _, fs in os.walk(out_dir) for f in fs]
             if len(outputs) != images_per_domain * n_styles:
@@ -825,6 +1009,33 @@ def main() -> int:
         fail(f"whole-path MAE {mae:.3e} > {MAE_BAR}")
     ref_out = got
 
+    # the parity mode: the float32 ``ref`` engine (K3's exact float32 route, K4
+    # in float32) against the same path composed from the plain versions
+    engine32 = StylizeEngine(enc, dec, dtype=torch.float32, device=dev)
+    for fn in counters.values():
+        fn.launches = 0
+    got32 = engine32.stylize_multi(images_u8, s_means, s_stds, 1.0)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if counts != {"K3": 9 + 9 * n_styles, "K4": 1}:
+        fail(f"float32 ref stylize_multi: launches {counts}, expected K3 {9 + 9 * n_styles}, K4 1")
+    with torch.no_grad():
+        feat32 = plain_apply(engine32.enc, images_u8.float() / 255.0, vgg.ENCODER_ARCH,
+                             stop_at="relu4_1")
+        want32 = torch.stack([
+            plain_apply(engine32.dec, fused_adain_reference(feat32, m, s, 1.0), vgg.DECODER_ARCH)
+            for m, s in zip(s_means, s_stds)
+        ])
+    if got32.shape != want32.shape or not bool(got32.isfinite().all()):
+        fail(f"float32 stylize_multi: shape {tuple(got32.shape)} or non-finite values")
+    mae32 = (got32 - want32).abs().mean().item()
+    print(f"ref float32: whole path vs plain path: MAE {mae32:.3e} max "
+          f"{(got32 - want32).abs().max().item():.3e}; against the bf16 engine MAE "
+          f"{(got32 - ref_out).abs().mean().item():.3e}; launches {counts} (as expected)")
+    if not mae32 <= F32_MAE_BAR:
+        fail(f"float32 whole-path MAE {mae32:.3e} > {F32_MAE_BAR}")
+    del engine32, got32, want32, feat32
+
     # int8-fused, from the scales calibrate wrote, against its plain composition
     def plain_q8s(ep, dp, images):
         def qref(x, q, relu, pad):
@@ -867,7 +1078,7 @@ def main() -> int:
         q8[name] = engines[name].stylize_multi(images_u8, s_means, s_stds, 1.0)
         torch.cuda.synchronize()
         counts = {k: counters[k].launches for k in ("K0", "K1", "K2", "K3", "K4")}
-        expect = {"K2": 0, "K3": 0, "K4": n_styles, **per_batch}
+        expect = {"K2": 0, "K3": 0, "K4": 1, **per_batch}
         if counts != expect:
             fail(f"{name} stylize_multi: launches {counts}, expected {expect}")
         print(f"{name} stylize_multi: launches {counts} per content batch (as expected)")
@@ -909,7 +1120,18 @@ def main() -> int:
                     vgg_fast.apply_decoder_q8s(dp, t))
     print("apply_decoder_q8s_fused (K2) equals apply_decoder_q8s bit for bit")
 
-    rates = {}
+    # the bank step on the device: one encode of a batch and its moments (K5)
+    from ccst_tpu_torch.ops.welford import welford_init
+    from ccst_tpu_torch.pipeline.style_bank import make_bank_step
+
+    bank_step = make_bank_step(enc, torch.bfloat16, dev)
+    bank_images = images_u8.float() / 255.0
+    bank_state = welford_init(512, dev)
+    bank_ms = time_ms(torch, lambda: bank_step(bank_state, bank_images, batch), reps=3, runs=5)
+    print(f"bank step on the device ({batch} x {SIZE}px, bf16): {bank_ms:.3f} ms/batch = "
+          f"{batch / (bank_ms * 1e-3):.1f} img/s")
+
+    rates = {"bank-step": dict(ms=bank_ms, img_s=batch / (bank_ms * 1e-3))}
     for name, eng in (("ref", engine), *engines.items()):
         ms = time_ms(torch, lambda: eng.stylize_multi(images_u8, s_means, s_stds, 1.0),
                      reps=3, runs=5)
@@ -925,10 +1147,11 @@ def main() -> int:
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
                "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN), "stylize ref"),
-        "K4": ("fused_adain", "triton", "ccst_tpu_torch/kernels/adain_triton.py",
-               "ccst_tpu/kernels/adain_pallas.py:56", [4, 64, 64, 512], "stylize ref, int8-fused"),
-        "K5": ("channel_moments", "triton", "ccst_tpu_torch/kernels/moments_triton.py",
-               "ccst_tpu/kernels/welford_pallas.py:52", [3, 64, 64, 512], "style-bank"),
+        "K4": ("fused_adain_multi", "cuda", "ccst_tpu_torch/csrc/adain.cu",
+               "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
+               "stylize ref, int8-fused"),
+        "K5": ("channel_moments", "cuda", "ccst_tpu_torch/csrc/moments.cu",
+               "ccst_tpu/kernels/welford_pallas.py:52", list(relu4_1_shape(batch)), "style-bank"),
         "K0": ("qconv3x3_s8", "cuda", "ccst_tpu_torch/csrc/qconv3x3_s8.cu",
                "ccst_tpu/models/vgg_fast.py:381", list(K0_MAIN), "stylize int8-fused"),
         "K1": ("encoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
@@ -952,16 +1175,20 @@ def main() -> int:
     kernels = []
     for k, (name, route, source, replaces, shape, path) in sources.items():
         rows = results[k]
+        # the row of the case the main paths launch: K4 restyles all the banks at once
         main_row = next(r for r in rows if r["shape"] == shape and "ms" in r
+                        and r.get("styles", n_styles) == n_styles
                         and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16"
                         and r.get("variant", "i8i32") == "i8i32"
                         and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False))
         library_ms = main_row.get("cudnn_bf16_ms", main_row.get("library_ms"))
         per_shape = [
-            {key: r.get(key) for key in ("layer", "variant", "shape", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "cudnn_bf16_ms", "library_ms",
-                                         "cublas_bf16_out_ms") if key in r}
-            for r in rows if k in ("K3", "K0", "B1") and "ms" in r
+            {key: r.get(key) for key in ("layer", "variant", "dtype", "alpha", "styles", "kernel_variant", "shape",
+                                         "ms", "plain_ms", "bound_ms", "bound_by", "cudnn_bf16_ms",
+                                         "cudnn_f32_ms", "library_ms", "cublas_bf16_out_ms",
+                                         "single_launches_ms", "call_ms", "empty_launch_ms")
+             if key in r}
+            for r in rows if k in ("K3", "K4", "K5", "K0", "B1") and "ms" in r
         ]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -972,6 +1199,7 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": library_ms, "timed_shape": shape,
+            **({"timed_styles": main_row["styles"]} if "styles" in main_row else {}),
             **({"tops": main_row["tops"]} if "tops" in main_row else {}),
             **({"shapes": per_shape} if per_shape else {}),
         })

@@ -143,11 +143,11 @@ def _meta(shape, dtype=torch.bfloat16):
     [
         (_meta((1, 1, 4, 64)), ValueError),                         # H < 2
         (_meta((1, 4, 4, 32)), ValueError),                         # Cin mismatch
-        (_meta((1, 4, 4, 64), torch.float32), TypeError),           # bf16 only
+        (_meta((1, 4, 4, 64), torch.float16), TypeError),           # float16 raises
         (_meta((1, 4, 64, 4)).permute(0, 1, 3, 2), ValueError),     # not contiguous
         (_meta((1, 2, 1, 64)), ValueError),                         # W < 2
     ],
-    ids=["h1", "cin", "f32", "strided", "w1"],
+    ids=["h1", "cin", "f32", "strided", "w1"],  # "f32": the float16 case keeps its old id
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(x, error):
     cw = prepare_conv(torch.randn(3, 3, 64, 8), torch.randn(8), torch.bfloat16, "meta")
@@ -155,6 +155,49 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(x, error):
     with pytest.raises(error):
         reflect_conv3x3(x, cw)
     assert reflect_conv3x3.launches == before
+
+
+def test_wrapper_rejects_weights_of_another_dtype():
+    cw = prepare_conv(torch.randn(3, 3, 64, 8), torch.randn(8), torch.bfloat16, "meta")
+    with pytest.raises(TypeError, match="same dtype"):
+        reflect_conv3x3(_meta((1, 4, 4, 64), torch.float32), cw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("cin", [3, 64])
+def test_device_tensor_reaches_the_build(monkeypatch, dtype, cin):
+    """bfloat16 and float32 with weights prepared in the same dtype pass every
+    check and ask for the kernel library: float32 is a route of the kernel,
+    not a TypeError, and nothing else serves a tensor that is not on the CPU."""
+    from ccst_tpu_torch.kernels import _build
+
+    class Reached(Exception):
+        pass
+
+    def library():
+        raise Reached
+
+    monkeypatch.setattr(_build, "library", library)
+    cw = prepare_conv(torch.randn(3, 3, cin, 8), torch.randn(8), dtype, "meta")
+    before = reflect_conv3x3.launches
+    with pytest.raises(Reached):
+        reflect_conv3x3(_meta((2, 5, 7, cin), dtype), cw)
+    assert reflect_conv3x3.launches == before
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (64, 3), (80, 130)])
+def test_packed_weight_layout_float32(rng, cin, cout):
+    """float32 weights take the gather kernels' matrix whatever Cin: rows
+    HWIO's (dy, dx, ci) in order, zero padded to the tile, still float32."""
+    wk = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(np.float32))
+    packed = pack_weight(wk)
+    kp, np_ = packed.shape
+    assert packed.dtype == torch.float32
+    assert (kp, np_) == (-(-9 * cin // TILE_K) * TILE_K, -(-cout // TILE_N) * TILE_N)
+    assert torch.equal(packed[: 9 * cin, :cout].reshape(3, 3, cin, cout), wk)
+    assert packed[9 * cin :].abs().sum() == 0 and packed[:, cout:].abs().sum() == 0
+    cw = prepare_conv(wk, torch.zeros(cout), torch.float32, "cpu")
+    assert torch.equal(cw.packed, packed) and cw.w.dtype == torch.float32
 
 
 def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
@@ -208,6 +251,11 @@ def test_ptxas_report_parses_verbose_output():
     assert short_name("_ZN3foo29reflect_conv3x3_gather_kernelEPK13__nv_bfloat16") == (
         "reflect_conv3x3_gather_kernel")
     assert short_name("_Z9something") == "_Z9something"
+    # type and bool template arguments (the AdaIN and moments kernels)
+    assert short_name("_ZN39_GLOBAL__N__8a1b2c3d_8_adain_cu_1234567812adain_kernel"
+                      "I13__nv_bfloat16Lb1EEEvPKT_PS2_PKfS7_iiiiiiifff") == (
+        "adain_kernel<__nv_bfloat16,1>")
+    assert short_name("_ZN3foo22channel_moments_kernelIfEEvPKT_") == "channel_moments_kernel<float>"
     report = parse(
         "ptxas info    : (C7519) warpgroup.arrive is injected in around line 9 by compiler\n"
         f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"

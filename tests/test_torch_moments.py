@@ -4,7 +4,9 @@ finalize, and the style-bank step of ccst_tpu_torch, held against ccst_tpu
 
 Tolerances, as tests/test_kernels.py states them for the Pallas kernel:
 float32 mean rtol=1e-5, M2 rtol=1e-4; the bank step through the float32
-encoder rtol=1e-4, atol=1e-6.
+encoder rtol=1e-4, atol=1e-6. The numpy model of the CUDA kernel's partition
+(``simulate_moments``) is held to the plain version at the kernel's own bar on
+the card: mean rtol=1e-5, M2 rtol=1e-4.
 """
 import jax
 import jax.numpy as jnp
@@ -14,7 +16,13 @@ import torch
 
 from ccst_tpu.kernels.welford_pallas import channel_moments as jax_channel_moments
 from ccst_tpu.ops import welford as jw
-from ccst_tpu_torch.kernels.moments import channel_moments, channel_moments_reference
+from ccst_tpu_torch.kernels.moments import (
+    MomentsPlan,
+    channel_moments,
+    channel_moments_reference,
+    plan_moments,
+    simulate_moments,
+)
 from ccst_tpu_torch.ops import welford as tw
 
 
@@ -97,4 +105,71 @@ def test_channel_moments_rejects_what_the_kernel_does_not_take(feat, error):
     before = channel_moments.launches
     with pytest.raises(error):
         channel_moments(feat)
+    assert channel_moments.launches == before
+
+
+@pytest.mark.parametrize(
+    "rows,c,itemsize,plan",
+    [
+        (3 * 64 * 64, 512, 2, MomentsPlan(512, 24, 8)),     # the bank's batch of 3 at 512 px
+        (3 * 64 * 64, 512, 4, MomentsPlan(512, 24, 16)),
+        (4 * 64 * 64, 512, 2, MomentsPlan(512, 32, 8)),     # the smoke's batch of 4
+        (3 * 64 * 64, 500, 2, MomentsPlan(512, 24, 8)),
+        (32 * 64 * 64, 512, 2, MomentsPlan(512, 256, 8)),   # batch 32
+        (2 * 7 * 9, 100, 4, MomentsPlan(512, 1, 4)),        # one chunk: the block merges alone
+        (1, 16, 4, MomentsPlan(512, 1, 1)),
+    ],
+)
+def test_plan_moments(rows, c, itemsize, plan):
+    assert plan_moments(rows, c, itemsize) == plan
+    assert plan.chunk * plan.nchunks >= rows > plan.chunk * (plan.nchunks - 1)
+
+
+# ragged shapes for the model of the kernel's partition: channels off the
+# 128-byte group, one row, rows off the chunk and the 32-row sweep, fewer
+# chunks than merge segments (3), and enough chunks (77) for uneven segments
+MODEL_SHAPES = [(1, 4, 5, 500), (1, 1, 1, 16), (2, 37, 53, 12), (3, 20, 21, 40), (77 * 512 - 5, 8)]
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_partition_model_equals_plain_version(rng, shape):
+    """Chunks of rows, each chunk's mean and centred squares from block sums
+    in the kernel's order, the chunks Chan-merged in chunk order: within the
+    kernel's bar of the plain version, and the same bits on a second run."""
+    feat = (rng.standard_normal(shape, dtype=np.float32) * 3 + 10).astype(np.float32)
+    mean, m2, count = simulate_moments(feat)
+    r_mean, r_m2, r_count = channel_moments_reference(torch.from_numpy(feat))
+    assert count == float(r_count) == np.prod(shape[:-1])
+    assert mean.dtype == m2.dtype == np.float32
+    np.testing.assert_allclose(mean, r_mean.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(m2, r_m2.numpy(), rtol=1e-4, atol=1e-6)
+    again = simulate_moments(feat.copy())
+    assert mean.tobytes() == again[0].tobytes() and m2.tobytes() == again[1].tobytes()
+
+
+def test_partition_model_matches_pallas_moments(rng):
+    feat = (rng.standard_normal((3, 8, 8, 128), dtype=np.float32) * 3 + 10).astype(np.float32)
+    m_j, m2_j, n_j = jax_channel_moments(jnp.asarray(feat), interpret=True)
+    mean, m2, count = simulate_moments(feat)
+    np.testing.assert_allclose(mean, np.asarray(m_j), rtol=1e-5)
+    np.testing.assert_allclose(m2, np.asarray(m2_j), rtol=1e-4)
+    assert count == float(n_j)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_channel_moments_on_a_device_tensor_reaches_the_build(monkeypatch, dtype):
+    """What the kernel takes passes every check and asks for the kernel
+    library: there is no other path for a tensor that is not on the CPU."""
+    from ccst_tpu_torch.kernels import _build
+
+    class Reached(Exception):
+        pass
+
+    def library():
+        raise Reached
+
+    monkeypatch.setattr(_build, "library", library)
+    before = channel_moments.launches
+    with pytest.raises(Reached):
+        channel_moments(torch.empty((3, 4, 4, 500), dtype=dtype, device="meta"))
     assert channel_moments.launches == before

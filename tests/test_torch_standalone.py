@@ -59,7 +59,8 @@ def test_port_has_sources_to_walk():
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_ccst_tpu_or_jax(path):
-    banned = _imported_roots(path) & {"ccst_tpu", "jax", "jaxlib", "flax", "optax"}
+    # nor triton: every kernel of the port is CUDA C++ under csrc/
+    banned = _imported_roots(path) & {"ccst_tpu", "jax", "jaxlib", "flax", "optax", "triton"}
     assert not banned, f"{os.path.relpath(path, REPO)} imports {sorted(banned)}"
 
 

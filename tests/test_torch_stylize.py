@@ -85,6 +85,44 @@ def test_stylize_multi_matches_jax_engine_f32(rng, params):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stylize_multi_is_one_adain_launch_and_equals_stylize_per_style(
+        rng, params, dtype, monkeypatch):
+    """One call of the S-style AdaIN for the whole bank, and exactly the
+    outputs of S single-style ``stylize`` calls."""
+    from ccst_tpu_torch.pipeline import stylize as mod
+
+    calls = []
+    multi = mod.fused_adain_multi
+    monkeypatch.setattr(mod, "fused_adain_multi",
+                        lambda *a, **kw: calls.append(a[1].shape) or multi(*a, **kw))
+    images = torch.from_numpy(rng.random((2, 16, 16, 3), np.float32))
+    s_means, s_stds = _banks(rng, 3)
+    engine = StylizeEngine(params[0], _spread(params[1]), dtype=dtype, device="cpu")
+    got = engine.stylize_multi(images, s_means, s_stds, 0.7)
+    assert calls == [(3, 512)]
+    for s in range(3):
+        assert torch.equal(got[s], engine.stylize(images, s_means[s], s_stds[s], 0.7))
+
+
+def test_float32_ref_engine_matches_jax_float32_engine(rng, params):
+    """The parity mode (``--dtype float32``): the port's float32 ``ref``
+    engine against ccst_tpu's at 32 px, on outputs that spread over [0, 1];
+    MAE <= 1e-5 (the same float32 maths, sums in another order)."""
+    enc, dec = params[0], _spread(params[1])
+    images = rng.random((2, 32, 32, 3), np.float32)
+    s_means, s_stds = _banks(rng, 2)
+    ref = np.asarray(JaxEngine(enc, dec, dtype=jnp.float32).stylize_multi(
+        jnp.asarray(images), s_means, s_stds, 1.0))
+    engine = StylizeEngine(enc, dec, dtype=torch.float32, device="cpu")
+    assert all(cw.w.dtype == torch.float32 and (cw.packed is None or cw.packed.dtype == torch.float32)
+               for cw in (*engine.enc.values(), *engine.dec.values()))
+    got = engine.stylize_multi(torch.from_numpy(images), s_means, s_stds, 1.0)
+    assert got.dtype == torch.float32 and ref.max() - ref.min() >= 0.5
+    mae = float(np.mean(np.abs(got.numpy() - ref)))
+    assert mae <= 1e-5, mae
+
+
 def test_bf16_matches_jax_ref_engine(rng, params):
     enc, dec = params[0], _spread(params[1])
     images = rng.random((1, 32, 32, 3), np.float32)

@@ -35,23 +35,26 @@ def test_arch_specs_equal_jax(which):
 
 
 def test_from_jax_params_bridge(jax_params):
-    """A ccst_tpu numpy parameter tree goes straight into prepare_params."""
+    """A ccst_tpu numpy parameter tree goes straight into prepare_params, for
+    the float32 route (every 3x3 layer the gather kernels' matrix) and for
+    bfloat16 (stage tiles where Cin is a multiple of 8)."""
     enc_np, _ = jax_params
-    prepared = tvgg.prepare_params(enc_np, torch.float32, "cpu")
-    assert set(prepared) == set(enc_np)
-    for name, p in enc_np.items():
-        cw = prepared[name]
-        np.testing.assert_array_equal(cw.w.numpy(), p["w"])
-        np.testing.assert_array_equal(cw.b.numpy(), p["b"])
-        cin, cout = p["w"].shape[2:]
-        if p["w"].shape[0] != 3:
-            assert cw.packed is None
-        elif cin % 8:  # conv1_1: the gather path's (Kp, Np) matrix
-            np.testing.assert_array_equal(cw.packed[:9 * cin, :cout].numpy(),
-                                          p["w"].reshape(9 * cin, cout))
-        else:          # the wgmma path's stage tiles
-            np.testing.assert_array_equal(
-                igemm_layout.unpack_stage_tiles(cw.packed, cin, cout).numpy(), p["w"])
+    for dtype in (torch.float32, torch.bfloat16):
+        prepared = tvgg.prepare_params(enc_np, dtype, "cpu")
+        assert set(prepared) == set(enc_np)
+        for name, p in enc_np.items():
+            cw = prepared[name]
+            w = torch.from_numpy(np.array(p["w"])).to(dtype)
+            assert torch.equal(cw.w, w)
+            assert torch.equal(cw.b, torch.from_numpy(np.array(p["b"])).to(dtype).float())
+            cin, cout = p["w"].shape[2:]
+            if p["w"].shape[0] != 3:
+                assert cw.packed is None
+            elif dtype == torch.float32 or cin % 8:  # the gather paths' (Kp, Np) matrix
+                assert cw.packed.dtype == dtype
+                assert torch.equal(cw.packed[:9 * cin, :cout], w.reshape(9 * cin, cout))
+            else:          # the wgmma path's stage tiles
+                assert torch.equal(igemm_layout.unpack_stage_tiles(cw.packed, cin, cout), w)
 
 
 @pytest.mark.parametrize("shape", [(2, 6, 6, 4), (1, 7, 5, 3)])
