@@ -4,8 +4,8 @@ Counterpart of ``benchmarks/fused_pool_conv_ab.py``. Variants, all with the
 same int32 accumulation and float32 requant epilogue:
 
   A    production: ``phase_max`` (plain torch) -> conv2_1 (K0, reflect)
-  F9   ``kernels/pool_conv.py::pool_conv_fused``, 9 K-steps of 64
-  F3   the same kernel, 3 K-steps of 192 (column taps side by side)
+  F9   ``kernels/pool_conv.py::pool_conv_fused``, 9 K-steps of 64 (a tap a weight stage)
+  F3   the same kernel, 3 K-steps of 192 (the column taps of a kernel row a stage)
 
 Keys: ``correctness`` (F9 and F3 against A at (2, 16, 16, 256), as the
 reference's ``check_correctness``), ``A_pool1_c21_ms``, ``F9_fused_ms``,
@@ -29,7 +29,7 @@ import torch
 
 from ccst_tpu_torch import benchmarks as bm
 from ccst_tpu_torch.kernels.level1 import phase_max
-from ccst_tpu_torch.kernels.pool_conv import pool_conv_fused
+from ccst_tpu_torch.kernels.pool_conv import pool_conv_fused, prepare_pool_conv
 from ccst_tpu_torch.kernels.qconv import make_qconv, qconv3x3_s8
 from ccst_tpu_torch.models.vgg_fast import _quantize_kernel
 
@@ -81,13 +81,13 @@ def _input(shape, seed, dev):
     return torch.randint(-5, 120, shape, generator=gen, device=dev, dtype=torch.int8)
 
 
-def check_correctness(q, dev) -> dict:
+def check_correctness(q, wp, dev) -> dict:
     """F9 and F3 against A, bit for bit, at a small shape."""
     xp = _input(CHECK_SHAPE, 1, dev)
     want = production(xp, q)
     ok = {}
     for name, cat in VARIANTS:
-        bm.check_equal(f"{name} vs production", pool_conv_fused(xp, q, cat), want)
+        bm.check_equal(f"{name} vs production", pool_conv_fused(xp, q, cat, wp), want)
         ok[name] = "bit-exact"
     return ok
 
@@ -97,20 +97,22 @@ def main(argv=None) -> dict:
     dev = bm.device_of(args)
     wq, k, kb = build_prep()
     q = make_qconv(wq, k, kb, False, True, dev)
-    res = {**bm.card(dev), "correctness": check_correctness(q, dev)}
+    wp = prepare_pool_conv(q)  # the fused kernel's stage tiles, packed once
+    res = {**bm.card(dev), "correctness": check_correctness(q, wp, dev)}
     print(json.dumps(res), flush=True)
 
     xp = _input((args.batch, args.spatial, args.spatial, 256), 0, dev)
     res["shape"] = list(xp.shape)
     want = production(xp, q)
     for name, cat in VARIANTS:
-        bm.check_equal(f"{name} vs production at {tuple(xp.shape)}", pool_conv_fused(xp, q, cat), want)
+        bm.check_equal(f"{name} vs production at {tuple(xp.shape)}",
+                       pool_conv_fused(xp, q, cat, wp), want)
     res["exact_vs_production"] = True
     del want
     if dev.type == "cuda":
         res["A_pool1_c21_ms"] = bm.time_ms(lambda: production(xp, q), args)
         for name, cat in VARIANTS:
-            res[f"{name}_fused_ms"] = bm.time_ms(lambda c=cat: pool_conv_fused(xp, q, c), args)
+            res[f"{name}_fused_ms"] = bm.time_ms(lambda c=cat: pool_conv_fused(xp, q, c, wp), args)
         res["delta_ms"] = res["A_pool1_c21_ms"] - min(res["F9_fused_ms"], res["F3_fused_ms"])
         ops = 2 * xp.shape[0] * xp.shape[1] * xp.shape[2] * 576 * 128
         for name in ("A_pool1_c21", "F9_fused", "F3_fused"):

@@ -1,6 +1,8 @@
-// The Hopper core of the two 3x3 conv kernels (reflect_conv3x3.cu, bf16, and
-// qconv3x3_s8.cu, int8): an implicit GEMM on `wgmma`, in bytes, so that one
-// mainloop serves both element types.
+// The Hopper core of the 3x3 conv kernels (reflect_conv3x3.cu, bf16, and
+// qconv3x3_s8.cu, int8; the fused kernels of level1_s8.cu and pool_conv_s8.cu
+// write its A planes themselves and run its mainloop, or their own loops, on
+// them): an implicit GEMM on `wgmma`, in bytes, so that one mainloop serves
+// both element types.
 //
 // Output tile. A block of two warpgroups computes 8 rows x 16 pixels of one
 // image for BN output channels; each warpgroup owns an 8 x 8 half (the 64 rows
@@ -99,6 +101,9 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
   asm volatile(
@@ -266,21 +271,27 @@ struct NoPassEpilogue {
 // NPASS > 1: the block walks output-channel tiles ntile .. ntile + NPASS - 1
 // over the same A in one run of the weight ring; after each tile's last step
 // epi(pass, acc) consumes the sums and they restart from zero.
-template <bool BF16, int BN, int TPS, bool RESIDENT = false, int NPASS = 1,
+// KSTEPS: the 32-byte K steps of a pixel that a chunk holds. 4 is the full
+// 128-byte chunk. 2 is for a resident tile of at most 64 bytes of channels
+// (one chunk): the tile is four planes, a tap's weights are BN x 64 bytes, and
+// no stage carries the zero half that a 64-byte layer leaves in a full chunk.
+template <bool BF16, int BN, int TPS, bool RESIDENT = false, int NPASS = 1, int KSTEPS = 4,
           typename Epi = NoPassEpilogue>
 __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc)[BN / 2],
                                               const uint8_t* __restrict__ x,
                                               const uint8_t* __restrict__ wp, const ConvGeom& g,
                                               int n, int y0, int x0, int ntile, uint8_t* smem,
                                               Epi epi = Epi()) {
+  static_assert(KSTEPS == 4 || (KSTEPS == 2 && RESIDENT), "only a resident tile may be half a chunk");
   constexpr int S = Ring<TPS>::STAGES;
-  constexpr int SPC = 9 / TPS;         // steps per chunk
-  constexpr int B_TAP = BN * CHUNK;    // bytes of one tap's weights of one chunk
+  constexpr int SPC = 9 / TPS;             // steps per chunk
+  constexpr int A_TILE = KSTEPS * 2 * PLANE;  // one halo tile of one chunk (A_BYTES when KSTEPS == 4)
+  constexpr int B_TAP = BN * KSTEPS * 32;  // bytes of one tap's weights of one chunk
   constexpr int B_STAGE = TPS * B_TAP;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const uint32_t sA = smem_u32(smem);
-  const uint32_t sB = sA + g.a_slots * A_BYTES;
+  const uint32_t sB = sA + g.a_slots * A_TILE;
   const uint32_t bars = sB + g.b_slots * B_STAGE;
   const int T = g.nchunks * SPC;       // steps of one output-channel tile
   const int total = NPASS * T;
@@ -312,7 +323,7 @@ __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc
       if (step - c * SPC == 0) {
         const int cb = c * CHUNK + grp * 16;  // byte of this group in the pixel's channels
         const bool in = cb < g.cin_bytes;     // past Cin: zero fill (the weights are zero there too)
-        const uint32_t dst = sA + (c % g.a_slots) * A_BYTES + grp * PLANE;
+        const uint32_t dst = sA + (c % g.a_slots) * A_TILE + grp * PLANE;
 #pragma unroll
         for (int i = 0; i < A_ITEMS; ++i) {
           if (pix[i] < 0) continue;
@@ -350,24 +361,24 @@ __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc
 
       const int c = ps / SPC;
       const int t0 = (ps - c * SPC) * TPS;
-      const int kc = min(4, (g.cin_bytes - c * CHUNK + 31) >> 5);  // 32-byte K steps in this chunk
-      const uint32_t a_base = sA + (c % g.a_slots) * A_BYTES + wg * 8 * 16;
+      const int kc = min(KSTEPS, (g.cin_bytes - c * CHUNK + 31) >> 5);  // 32-byte K steps in this chunk
+      const uint32_t a_base = sA + (c % g.a_slots) * A_TILE + wg * 8 * 16;
       const uint32_t b_base = sB + slot * B_STAGE;
-      // one tap's products; FULL: all four K steps, no branch between the wgmmas
+      // one tap's products; FULL: all KSTEPS K steps, no branch between the wgmmas
       // (across a branch the assembler fences every one of them again)
       auto tap_mma = [&](int tt, auto full) {
         const int tap = t0 + tt;
         const int dy = tap / 3, dx = tap - dy * 3;
         const uint32_t a_tap = a_base + (dy * HALO_W + dx) * 16;
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
+        for (int ks = 0; ks < KSTEPS; ++ks) {
           if (decltype(full)::value || ks < kc)
             Wgmma<BF16, BN>::mma(acc, desc_at(a_strides, a_tap + ks * 2 * PLANE),
                                  desc_at(b_strides, b_base + tt * B_TAP + ks * 2 * BN * 16));
         }
       };
       wgmma_fence();
-      if (kc == 4) {
+      if (kc == KSTEPS) {
 #pragma unroll
         for (int tt = 0; tt < TPS; ++tt) tap_mma(tt, std::true_type{});
       } else {
@@ -460,6 +471,70 @@ __device__ __forceinline__ void store_tile_bf16(const Acc (&acc)[BN / 2], F valu
   }
 }
 
+// v[q] holds this lane's bytes of tile columns 64 jj + 16 q + {2 t, 2 t + 1, 8 +
+// 2 t, 9 + 2 t} (two neighbouring columns of two 8-column groups); on return
+// lane t of the quad has columns 64 jj + 16 t .. + 15 in order, 16 bytes.
+// Every lane of the quad must call it.
+__device__ __forceinline__ uint4 gather_s8x16(uint32_t (&v)[4]) {
+  quad_transpose(v, threadIdx.x & 3);
+  return make_uint4(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410),
+                    __byte_perm(v[0], v[1], 0x7632), __byte_perm(v[2], v[3], 0x7632));
+}
+
+// Sixteen int8 outputs of one pixel as one 16-byte word. quant(j, e, a) is the
+// requantized value (0..255 as its two's-complement byte) of accumulator a at
+// tile column 8 j + 2 t + e. Round jj covers columns 64 jj .. 64 jj + 63; on
+// return lane t of a quad holds columns 64 jj + 16 t .. + 15 of row half h.
+// Every lane of the quad must call it.
+template <int NACC, typename Q>
+__device__ __forceinline__ uint4 pack_s8x16(const int (&acc)[NACC], Q quant, int jj, int h) {
+  uint32_t v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 8 * jj + 2 * q + (i >> 1);
+      b[i] = quant(j, i & 1, acc[4 * j + 2 * h + (i & 1)]);
+    }
+    v[q] = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24);
+  }
+  return gather_s8x16(v);
+}
+
+// Store the tile as int8, quant as above. Cout % 16 == 0 and BN >= 64: 16-byte
+// stores of 16 channels; otherwise one byte at a time.
+template <int BN, typename Q>
+__device__ __forceinline__ void store_tile_s8(const int (&acc)[BN / 2], Q quant,
+                                              int8_t* __restrict__ y, const ConvGeom& g, int n,
+                                              int y0, int x0, int n0) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long px = out_pixel(g, n, y0, x0, h);
+    int8_t* row = y + (px < 0 ? 0 : px) * g.Cout + n0;
+    if constexpr (BN >= 64) {
+      if ((g.Cout & 15) == 0) {
+#pragma unroll
+        for (int jj = 0; jj < BN / 64; ++jj) {
+          const uint4 v = pack_s8x16(acc, quant, jj, h);
+          const int col = 64 * jj + 16 * t;
+          if (px >= 0 && n0 + col < g.Cout) *reinterpret_cast<uint4*>(row + col) = v;
+        }
+        continue;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const uint32_t q = quant(j, e, acc[4 * j + 2 * h + e]);
+        if (px >= 0 && n0 + col < g.Cout) row[col] = static_cast<int8_t>(q);
+      }
+  }
+}
+
 // ---- host side ----------------------------------------------------------
 
 // Blocks per SM a kernel is compiled for: three of the 64-wide tile (85
@@ -487,9 +562,9 @@ inline ConvGeom make_geom(int N, int H, int W, int cin_bytes, int Cout, int BN, 
   return g;
 }
 
-inline size_t smem_bytes(const ConvGeom& g, int BN, int TPS) {
-  return static_cast<size_t>(g.a_slots) * A_BYTES + static_cast<size_t>(g.b_slots) * TPS * BN * CHUNK +
-         8 * MAX_STAGES;
+inline size_t smem_bytes(const ConvGeom& g, int BN, int TPS, int ksteps = 4) {
+  return static_cast<size_t>(g.a_slots) * ksteps * 2 * PLANE +
+         static_cast<size_t>(g.b_slots) * TPS * BN * ksteps * 32 + 8 * MAX_STAGES;
 }
 
 // One block per (spatial tile, output-channel tile), the channel tiles of one

@@ -23,7 +23,8 @@
 // 16 for the few-channel output (the packed dconv1_1, Cout = 12), whose nine
 // taps share one stage. The epilogue runs from the accumulator registers with
 // the exact float chain of s8_mma.cuh and stores 16 bytes at a time (int8: 16
-// channels after a quad transpose and a byte permute; bf16: 8 channels).
+// channels after a quad transpose and a byte permute, the core's
+// store_tile_s8; bf16: 8 channels).
 // Integer sums are order-free, so the result equals the plain version bit for
 // bit.
 //
@@ -72,49 +73,23 @@ qconv3x3_s8_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restric
 
   if constexpr (OUT == 1) {
     store_tile_bf16<BN>(acc, value, static_cast<__nv_bfloat16*>(yv), g, n, y0, x0, n0);
+  } else if constexpr (OUT == 0) {
+    auto quant = [&](int j, int e, int a) {
+      return static_cast<uint32_t>(static_cast<uint8_t>(requant(value(j, e, a), lo)));
+    };
+    store_tile_s8<BN>(acc, quant, static_cast<int8_t*>(yv), g, n, y0, x0, n0);
   } else {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long px = out_pixel(g, n, y0, x0, h);
       const long long base = (px < 0 ? 0 : px) * g.Cout + n0;
-      if constexpr (OUT == 0 && BN >= 64) {
-        if ((g.Cout & 15) == 0) {
-          // 64 channels per round: lane t of a quad ends with the 16 channels
-          // of groups 2t and 2t + 1
-#pragma unroll
-          for (int jj = 0; jj < BN / 64; ++jj) {
-            uint32_t v[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              uint32_t b[4];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const int j = 8 * jj + 2 * q + (i >> 1);
-                b[i] = static_cast<uint8_t>(requant(value(j, i & 1, acc[4 * j + 2 * h + (i & 1)]), lo));
-              }
-              v[q] = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24);
-            }
-            quad_transpose(v, t);
-            const int col = 64 * jj + 16 * t;
-            if (px >= 0 && n0 + col < g.Cout)
-              *reinterpret_cast<uint4*>(static_cast<int8_t*>(yv) + base + col) =
-                  make_uint4(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410),
-                             __byte_perm(v[0], v[1], 0x7632), __byte_perm(v[2], v[3], 0x7632));
-          }
-          continue;
-        }
-      }
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + 2 * t + e;
           const float f = value(j, e, acc[4 * j + 2 * h + e]);
-          if (px < 0 || n0 + col >= g.Cout) continue;
-          if constexpr (OUT == 0)
-            static_cast<int8_t*>(yv)[base + col] = requant(f, lo);
-          else
-            static_cast<float*>(yv)[base + col] = f;
+          if (px >= 0 && n0 + col < g.Cout) static_cast<float*>(yv)[base + col] = f;
         }
     }
   }

@@ -1,6 +1,7 @@
-// Shared pieces of the int8 kernels (qconv3x3_s8.cu, level1_s8.cu): the int8
-// tensor-core instruction, the padding index maps and the float epilogue that
-// reproduces ccst_tpu/models/vgg_fast.py::_qconv_s bit for bit.
+// Shared pieces of the int8 kernels (qconv3x3_s8.cu, level1_s8.cu,
+// pool_conv_s8.cu, winograd_s8.cu): the mma.sync int8 instruction of the two
+// that still use it, the edge index map and the float epilogue that reproduces
+// ccst_tpu/models/vgg_fast.py::_qconv_s bit for bit.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -25,10 +26,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Index of padded position i in [-1, n] of an axis of length n.
-__device__ __forceinline__ int reflect_index(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
+// Index of edge-padded position i of an axis of length n.
 __device__ __forceinline__ int edge_index(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
@@ -52,6 +50,5 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
                "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 }  // namespace ccst_s8

@@ -1,6 +1,7 @@
 """Host side of ``csrc/conv_igemm_sm90.cuh``, the ``wgmma`` core of the 3x3 conv
-kernels (K3 bf16, K0 int8, and conv1_2 inside the fused level-1 encoder K1):
-its tile constants, the packed weight layout, and a numpy model of the kernel's
+kernels (K3 bf16, K0 int8, the second conv inside the fused level-1 kernels K1
+and K2, and the conv of the fused pool1 + conv2_1 kernel B3): its tile
+constants, the packed weight layout, and a numpy model of the kernel's
 addressing.
 
 The kernel works in bytes. A block computes 8 rows x 16 pixels for ``BN``
@@ -40,17 +41,19 @@ def pick_bn(cout: int, narrow: int) -> int:
     return narrow if cout <= narrow else (64 if cout <= 64 else 128)
 
 
-def pack_stage_tiles(w_hwio: torch.Tensor, bn: int) -> torch.Tensor:
-    """HWIO (3, 3, Cin, Cout) -> (n tiles, chunks, 9, 8, bn, 16 / itemsize),
-    contiguous: the bytes of every stage as the kernel holds them in shared
-    memory, K-major (the group's channels innermost)."""
+def pack_stage_tiles(w_hwio: torch.Tensor, bn: int, groups: int = GROUPS) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> (n tiles, chunks, 9, groups, bn, 16 /
+    itemsize), contiguous: the bytes of every stage as the kernel holds them in
+    shared memory, K-major (the group's channels innermost). ``groups`` is 8, a
+    full 128-byte chunk, or 4 for the mainloop's 64-byte mode (a resident tile
+    of at most 64 bytes of channels: one chunk, no zero half)."""
     kh, kw, cin, cout = w_hwio.shape
     per_group = GROUP_BYTES // w_hwio.element_size()
-    per_chunk = GROUPS * per_group
+    per_chunk = groups * per_group
     chunks, tiles = -(-cin // per_chunk), -(-cout // bn)
     padded = w_hwio.new_zeros((kh * kw, chunks * per_chunk, tiles * bn))
     padded[:, :cin, :cout] = w_hwio.reshape(kh * kw, cin, cout)
-    return (padded.reshape(kh * kw, chunks, GROUPS, per_group, tiles, bn)
+    return (padded.reshape(kh * kw, chunks, groups, per_group, tiles, bn)
             .permute(4, 1, 0, 2, 5, 3).contiguous())
 
 
@@ -106,6 +109,14 @@ def simulate_conv(x: np.ndarray, packed: np.ndarray, cout: int, reflect: bool) -
                     ok = (oy < h) & (ox < w)
                     out[n, oy[ok], ox[ok]] = acc[wg, ok]
     return out[..., :cout]
+
+
+def requant_relu(acc: np.ndarray, k: np.ndarray, kb: np.ndarray) -> np.ndarray:
+    """The int8 kernels' requant with ReLU on integer sums: two float32
+    roundings (``float(acc) * k``, ``+ kb``), rint, clip to [0, 127]."""
+    y = acc.astype(np.float32) * k.astype(np.float32)
+    y = y + kb.astype(np.float32)
+    return np.clip(np.rint(y), 0.0, 127.0).astype(np.int64)
 
 
 def accumulator_column(j: int, t: int, e: int) -> int:

@@ -19,16 +19,22 @@ an im2col GEMM on ``wgmma`` too, writes its requantized output straight into
 the core's shared-memory A planes, the core's mainloop multiplies them against
 bulk-copied weight stages, and the phase max is taken in registers, which
 :func:`prepare_encoder_level1` arranges by permuting conv1_2's output columns
-(``igemm_layout.level1_column_order``). K2 keeps its ``mma.sync`` kernel. The
+(``igemm_layout.level1_column_order``). K2 mirrors it in one persistent block
+an SM: the folded dconv1_2 runs on ``wgmma`` over flat positions of the input
+tile kept as planes (a tap is a start offset, nothing is copied) against weight
+stages that are dense in K (:func:`prepare_decoder_level1`) and pass once a
+tile, a fix-up pass restores the edge replica on border tiles, and dconv1_1
+reads the core's planes as the core does, with K0's narrow tile. The
 plain version is the unfused chain of two K0 plain versions
 (``kernels/qconv.py``) and, for K1, ``phase_max``: the reference the JAX
 package holds its Pallas kernel to. Unlike the Pallas kernel there is no
 row-tile rule: any image size runs.
 
-:func:`simulate_encoder_level1` walks K1's tiles, im2col rows, intermediate
-planes, weight stages and accumulator registers in numpy: the executable
-description of its addressing, which the CPU tests hold against the plain
-version since the kernel runs only on the card.
+:func:`simulate_encoder_level1` and :func:`simulate_decoder_level1` walk the
+kernels' tiles, A rows, intermediate planes, weight stages and accumulator
+registers in numpy: the executable description of their addressing, which the
+CPU tests hold against the plain versions since the kernels run only on the
+card.
 
 On a CPU tensor the wrappers compute the plain version; on a CUDA tensor they
 launch the kernel or raise.
@@ -41,11 +47,23 @@ import numpy as np
 import torch
 
 from ccst_tpu_torch.kernels import igemm_layout as il
-from ccst_tpu_torch.kernels.qconv import QConvS, _check_operands, qconv3x3_s8_reference
+from ccst_tpu_torch.kernels.qconv import (
+    NARROW_N,
+    QConvS,
+    _check_operands,
+    qconv3x3_s8_reference,
+)
 
 CMID = 256
 E_BN = 128          # columns of one wgmma and one conv1_2 pass (csrc/level1_s8.cu)
 IM2COL_ROWS = 192   # the 180 halo pixels of a tile, padded to three 64-row blocks
+# K2 (csrc/level1_s8.cu, D_*): conv1 runs over flat positions of the 12 x 20
+# input tile, four 64-row blocks; an input plane has 298 slots so that the
+# dropped rows of the last block read inside it
+D_CIN = 64
+D_GROUPS = D_CIN // 16
+D_BLOCKS = 4
+D_IN_SLOTS = 298
 
 
 class Level1Weights(NamedTuple):
@@ -71,6 +89,23 @@ def prepare_encoder_level1(q1: QConvS, q2: QConvS) -> Level1Weights:
     )
 
 
+class DecoderLevel1Weights(NamedTuple):
+    """K2's weights in its own layouts (:func:`prepare_decoder_level1`)."""
+
+    w1p: torch.Tensor   # (2, 1, 9, 4, 128, 16) int8: the folded dconv1_2 as 64-byte stage tiles
+    w2p: torch.Tensor   # (1, 2, 9, 8, 16, 16) int8: dconv1_1's stage tiles of the narrow tile (K0's)
+
+
+def prepare_decoder_level1(q2: QConvS, q1: QConvS) -> DecoderLevel1Weights:
+    """Pack the folded dconv1_2 (3, 3, 64, 256) and the packed dconv1_1 (3, 3,
+    256, Cout <= 16) for K2, on their device. dconv1_2's stages are dense in K:
+    a tap is 128 columns x 64 bytes, and the three taps of a kernel row of one
+    column half are one 24 KB run, which the kernel fetches whole. dconv1_1
+    is taken in K0's own layout for the narrow tile (``q1.wp``), which the
+    kernel keeps in shared memory whole."""
+    return DecoderLevel1Weights(w1p=il.pack_stage_tiles(q2.wq, E_BN, D_GROUPS), w2p=q1.wp)
+
+
 def phase_max(xp: torch.Tensor, c: int) -> torch.Tensor:
     """2x2/2 max pool of the original plane == max over the 4 phases of the
     packed tensor (``ccst_tpu`` ``vgg_fast.phase_max``)."""
@@ -91,13 +126,6 @@ def decoder_level1_reference(
     """Plain K2: folded dconv1_2 (requant + ReLU), then dconv1_1 (dequant)."""
     z = qconv3x3_s8_reference(y, q2.wq, q2.k, q2.kb, True, True, torch.int8, "edge")
     return qconv3x3_s8_reference(z, q1.wq, q1.k, q1.kb, False, False, out_dtype, "edge")
-
-
-def _requant_np(acc: np.ndarray, k: np.ndarray, kb: np.ndarray) -> np.ndarray:
-    """The kernels' requant with ReLU: two float32 roundings, rint, clip."""
-    y = acc.astype(np.float32) * k.astype(np.float32)
-    y = y + kb.astype(np.float32)
-    return np.clip(np.rint(y), 0.0, 127.0).astype(np.int64)
 
 
 def simulate_encoder_level1(x: np.ndarray, q1: QConvS, lw: Level1Weights) -> np.ndarray:
@@ -144,7 +172,7 @@ def simulate_encoder_level1(x: np.ndarray, q1: QConvS, lw: Level1Weights) -> np.
                     for nh in range(2):
                         acc = np.einsum("grk,gnk->rn", a, w1p[nh, 0, 0])
                         ch = nh * E_BN + np.arange(E_BN)
-                        q = _requant_np(acc, k1[ch], kb1[ch])
+                        q = il.requant_relu(acc, k1[ch], kb1[ch])
                         r = 64 * rb + r64
                         ok = r < il.HALO_PX
                         planes[ch[None, :] // 16, r[ok][:, None], ch[None, :] % 16] = q[ok]
@@ -159,7 +187,7 @@ def simulate_encoder_level1(x: np.ndarray, q1: QConvS, lw: Level1Weights) -> np.
                                 a = planes[il.GROUPS * c:il.GROUPS * (c + 1)][:, slots]
                                 acc += np.einsum("grk,gnk->rn", a, w2p[p, c, t9])
                         col = p * E_BN + np.arange(E_BN)
-                        q = _requant_np(acc, k2p[col], kb2p[col])
+                        q = il.requant_relu(acc, k2p[col], kb2p[col])
                         for jc in range(4):
                             for t in range(4):
                                 for e in range(2):
@@ -169,6 +197,73 @@ def simulate_encoder_level1(x: np.ndarray, q1: QConvS, lw: Level1Weights) -> np.
                     ok = (oy < hb) & (ox < wb)
                     out[n, oy[ok], ox[ok]] = best[ok]
     return out
+
+
+def simulate_decoder_level1(x: np.ndarray, q2: QConvS, q1: QConvS,
+                            dw: DecoderLevel1Weights) -> torch.Tensor:
+    """What K2 computes, (N, Hb, Wb, Cout) bfloat16, walked as the kernel walks
+    it: per 8 x 16 tile the clamped 12 x 20 input tile as planes ``[group][tile
+    pixel, pitch 20][16]``; conv1 over flat positions ``f = 64 rb + r`` of that
+    pitch, a tap the start offset ``dy * 20 + dx``, against ``dw.w1p``; the rows
+    that are halo pixels (``f % 20 < 18``, ``f // 20 < 10``) requantized into
+    the core's planes ``[channel // 16][halo slot][channel % 16]``; on a border
+    tile the fix-up that overwrites every halo slot outside the image with the
+    nearest slot inside (the edge replica); conv2 as the core's narrow tile
+    with each tap a start slot and the weights read from ``dw.w2p``; the
+    dequant in two float32 roundings, then bfloat16. ``x``: (N, Hb, Wb, 64)
+    int8."""
+    n_img, hb, wb, cin = x.shape
+    cout = q1.wq.shape[3]
+    x = x.astype(np.int64)
+    w1p, w2p = dw.w1p.numpy().astype(np.int64), dw.w2p.numpy().astype(np.int64)
+    k1, kb1 = q2.k.numpy(), q2.kb.numpy()
+    k2, kb2 = q1.k.numpy().astype(np.float32), q1.kb.numpy().astype(np.float32)
+    out = np.zeros((n_img, hb, wb, cout), np.float32)
+    ih, iw = il.TILE_H + 4, il.TILE_W + 4
+    mh = il.TILE_H + 2
+    r64 = np.arange(64)
+    p = np.arange(il.HALO_PX)
+    for n in range(n_img):
+        for y0 in range(0, hb, il.TILE_H):
+            for x0 in range(0, wb, il.TILE_W):
+                ty = np.clip(y0 - 2 + np.arange(ih), 0, hb - 1)
+                tx = np.clip(x0 - 2 + np.arange(iw), 0, wb - 1)
+                tile = x[n][ty][:, tx].reshape(ih * iw, D_GROUPS, 16)
+                in_planes = np.zeros((D_GROUPS, D_IN_SLOTS, 16), np.int64)  # the slack is never kept
+                in_planes[:, :ih * iw] = tile.transpose(1, 0, 2)
+                planes = np.zeros((2 * il.GROUPS, il.PLANE_SLOTS, 16), np.int64)
+                for rb in range(D_BLOCKS):
+                    f = 64 * rb + r64
+                    mr, mc = f // iw, f % iw
+                    ok = (mr < mh) & (mc < il.HALO_W)
+                    for nh in range(CMID // E_BN):
+                        acc = np.zeros((64, E_BN), np.int64)
+                        for tap in range(9):
+                            dy, dx = divmod(tap, 3)
+                            a = in_planes[:, f + dy * iw + dx]           # (4, 64, 16)
+                            acc += np.einsum("grk,gnk->rn", a, w1p[nh, 0, tap])
+                        ch = nh * E_BN + np.arange(E_BN)
+                        q = il.requant_relu(acc, k1[ch], kb1[ch])
+                        slot = mr[ok] * il.HALO_W + mc[ok]
+                        planes[ch[None, :] // 16, slot[:, None], ch[None, :] % 16] = q[ok]
+                if y0 == 0 or x0 == 0 or y0 + il.TILE_H >= hb or x0 + il.TILE_W >= wb:
+                    sr = np.clip(y0 - 1 + p // il.HALO_W, 0, hb - 1) - (y0 - 1)
+                    sc = np.clip(x0 - 1 + p % il.HALO_W, 0, wb - 1) - (x0 - 1)
+                    planes[:, :il.HALO_PX] = planes[:, sr * il.HALO_W + sc]
+                for wg in range(2):
+                    acc = np.zeros((64, NARROW_N), np.int64)
+                    for c in range(2):
+                        for t9 in range(9):
+                            dy, dx = divmod(t9, 3)
+                            slots = dy * il.HALO_W + dx + 8 * wg + (r64 // 8) * il.HALO_W + r64 % 8
+                            a = planes[il.GROUPS * c:il.GROUPS * (c + 1)][:, slots]
+                            acc += np.einsum("grk,gnk->rn", a, w2p[0, c, t9])
+                    val = acc[:, :cout].astype(np.float32) * k2
+                    val = val + kb2
+                    oy, ox = y0 + r64 // 8, x0 + 8 * wg + r64 % 8
+                    ok = (oy < hb) & (ox < wb)
+                    out[n, oy[ok], ox[ok]] = val[ok]
+    return torch.from_numpy(out).to(torch.bfloat16)
 
 
 def _launch(x: torch.Tensor, w1: torch.Tensor, k1: torch.Tensor, kb1: torch.Tensor,
@@ -186,7 +281,7 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, k1: torch.Tensor, kb1: torch.Tens
         rc = lib.ccst_fused_two_conv_s8(
             x.data_ptr(), w1.data_ptr(), k1.data_ptr(), kb1.data_ptr(),
             w2.data_ptr(), k2.data_ptr(), kb2.data_ptr(), out.data_ptr(),
-            n, hb, wb, cin, w1.shape[-1], w2.shape[-1], cout, int(pool), stream,
+            n, hb, wb, cin, cout, int(pool), stream,
         )
     if rc:
         raise RuntimeError(f"fused level-1 kernel launch failed: CUDA error {rc}")
@@ -215,25 +310,29 @@ def encoder_level1(xq_packed: torch.Tensor, q1: QConvS, q2: QConvS,
 
 
 def decoder_level1(
-    yq: torch.Tensor, q2: QConvS, q1: QConvS, out_dtype: torch.dtype = torch.bfloat16
+    yq: torch.Tensor, q2: QConvS, q1: QConvS, out_dtype: torch.dtype = torch.bfloat16,
+    weights: Optional[DecoderLevel1Weights] = None,
 ) -> torch.Tensor:
     """dconv2_1 output (N, H/2, W/2, 64) int8 -> packed image (N, H/2, W/2, 12)
-    in ``out_dtype``. q2/q1: the folded dconv1_2 / packed dconv1_1."""
+    in ``out_dtype``. q2/q1: the folded dconv1_2 / packed dconv1_1; ``weights``:
+    their :func:`prepare_decoder_level1`, made here when a caller has not kept
+    it."""
     if yq.device.type == "cpu":
         return decoder_level1_reference(yq, q2, q1, out_dtype)
     n, hb, wb, cin = yq.shape
     cout = q1.wq.shape[3]
-    if (tuple(q2.wq.shape) != (3, 3, 64, CMID) or tuple(q1.wq.shape[:3]) != (3, 3, CMID)
-            or cin != 64 or cout > 16 or cout % 2 or not q2.requant or q1.requant):
+    if (tuple(q2.wq.shape) != (3, 3, D_CIN, CMID) or tuple(q1.wq.shape[:3]) != (3, 3, CMID)
+            or cin != D_CIN or cout > NARROW_N or cout % 2 or not q2.requant or q1.requant):
         raise ValueError(
-            f"decoder_level1 takes (N, H, W, 64) int8, requantizing 64->{CMID} and "
-            f"dequantizing {CMID}->Cout (Cout even, <= 16) weights, got "
+            f"decoder_level1 takes (N, H, W, {D_CIN}) int8, requantizing {D_CIN}->{CMID} and "
+            f"dequantizing {CMID}->Cout (Cout even, <= {NARROW_N}) weights, got "
             f"{tuple(yq.shape)}, {tuple(q2.wq.shape)}, {tuple(q1.wq.shape)}"
         )
     if out_dtype != torch.bfloat16:
         raise TypeError(f"the fused level-1 kernel writes bfloat16, not {out_dtype}")
+    dw = weights if weights is not None else prepare_decoder_level1(q2, q1)
     out = torch.empty((n, hb, wb, cout), dtype=out_dtype, device=yq.device)
-    _launch(yq, q2.wt, q2.k, q2.kb, q1.wt, q1.k, q1.kb, cout, False, out)
+    _launch(yq, dw.w1p, q2.k, q2.kb, dw.w2p, q1.k, q1.kb, cout, False, out)
     decoder_level1.launches += 1
     return out
 

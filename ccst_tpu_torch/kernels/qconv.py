@@ -15,7 +15,8 @@ how the design answers that. It takes the weights in its own layout, made once
 by :func:`make_qconv` (:func:`pack_weight`): for Cin a multiple of 16 the stage
 tiles of ``kernels/igemm_layout.py``, which the kernel fetches whole; otherwise
 (the packed conv1_1, Cin = 12) the ``(Np, Kp)`` output-channel-major matrix of
-:func:`gemm_weight`, which the fused kernels (K1/K2, B3) take for every layer.
+:func:`gemm_weight` for the kernel's 4-byte gather route. The fused kernels
+(K1, K2, B3) pack their own stage tiles from ``wq``.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -47,7 +48,6 @@ class QConvS(NamedTuple):
     kb: torch.Tensor   # (Cout,) f32 per-output-channel additive term
     packed: bool
     requant: bool      # True -> int8 output; False -> dequantized output
-    wt: torch.Tensor   # (Np, Kp) int8: the fused kernels' weight matrix (gemm_weight)
     wp: torch.Tensor   # int8: this kernel's weight layout (pack_weight)
 
 
@@ -87,11 +87,9 @@ def make_qconv(wq, k, kb, packed: bool, requant: bool, device) -> QConvS:
     def dev(a):  # a copy: numpy views of JAX arrays are read-only
         return torch.from_numpy(np.array(a)).to(device)
 
-    wt = dev(gemm_weight(wq))
     return QConvS(
         wq=dev(wq), k=dev(np.asarray(k, np.float32)), kb=dev(np.asarray(kb, np.float32)),
-        packed=packed, requant=requant, wt=wt,
-        wp=dev(pack_weight(wq)) if uses_wgmma(wq.shape[2]) else wt,
+        packed=packed, requant=requant, wp=dev(pack_weight(wq)),
     )
 
 

@@ -40,6 +40,7 @@ from ccst_tpu_torch.kernels.level1 import (
     decoder_level1,
     encoder_level1,
     phase_max,
+    prepare_decoder_level1,
     prepare_encoder_level1,
 )
 from ccst_tpu_torch.kernels.qconv import make_qconv, qconv3x3_s8
@@ -146,8 +147,11 @@ def _quantize_kernel(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 def quantize_static(x: torch.Tensor, scale: float) -> torch.Tensor:
     """``rint(x * (1 / scale))`` clipped to [-127, 127], int8. The reciprocal
-    is rounded once to float32, as JAX's weak-typed Python float is."""
-    inv = torch.tensor(np.float32(1.0 / scale), device=x.device)
+    is rounded once to float32, as JAX's weak-typed Python float is; it stays
+    a Python number (a float32 tensor times a number is a float32 product), so
+    that no call copies a scalar to the device: such a copy cannot be captured
+    into a CUDA graph."""
+    inv = float(np.float32(1.0 / scale))
     return torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
 
 
@@ -200,8 +204,11 @@ def prepare_encoder_q8s(params, scales: Dict[str, float], dtype=torch.bfloat16, 
 
 
 def prepare_decoder_q8s(params, scales: Dict[str, float], dtype=torch.bfloat16, device="cpu"):
-    """``params``: :func:`cast_params` output for ``dtype``."""
-    return _prepare_q8s(params, scales, _DEC_NEXT, _PACKED_DEC, dtype, device)
+    """``params``: :func:`cast_params` output for ``dtype``. ``"__level1__"``
+    holds dconv1_2 / dconv1_1 once more, in the fused level-1 kernel's layouts."""
+    prep = _prepare_q8s(params, scales, _DEC_NEXT, _PACKED_DEC, dtype, device)
+    prep["__level1__"] = prepare_decoder_level1(prep["dconv1_2"], prep["dconv1_1"])
+    return prep
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +261,7 @@ def _decode(prep: Dict, feat: torch.Tensor, dtype: torch.dtype, fused: bool) -> 
         elif isinstance(layer, vgg.Upsample):
             xq = vgg.upsample_nearest2x(xq)
     if fused:
-        y = decoder_level1(xq, prep["dconv1_2"], prep["dconv1_1"], dtype)
+        y = decoder_level1(xq, prep["dconv1_2"], prep["dconv1_1"], dtype, prep["__level1__"])
     else:
         xq = qconv3x3_s8(xq, prep["dconv1_2"], True, dtype, "edge")
         y = qconv3x3_s8(xq, prep["dconv1_1"], False, dtype, "edge")

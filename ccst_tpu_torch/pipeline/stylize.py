@@ -14,8 +14,14 @@ style bank.
                        mode for verification), conv kernel K3;
       ``int8-static``  int8 end to end with calibrated static scales
                        (``models/vgg_fast.py``), int8 conv kernel K0;
-      ``int8-fused``   ``int8-static`` with the encoder's level-1 stage as one
-                       kernel (K1); the same outputs.
+      ``int8-fused``   ``int8-static`` with the level-1 stage of the encoder
+                       (K1) and of the decoder (K2) as one kernel each; the
+                       same outputs.
+    ``ccst_tpu``'s ``int8-fused`` engine keeps the unfused decoder, because
+    its fused decoder measured slower on the TPU. The two routes give the same
+    bits, so which one an engine takes is for the card to say, and on the H100
+    K2 is faster than the two K0 launches it replaces at batch 4 and at batch
+    32 (``PERF.md``, the table of kernels): the port decodes through it.
     The int8 engines calibrate on the first batch and style bank they see, or
     take ``scales`` (from ``calibrate``, :func:`run_calibration`).
   - The transfer loop decodes each content batch once (uint8 transport,
@@ -110,11 +116,11 @@ class StylizeEngine:
     def _build_int8(self, scales) -> None:
         ep = vgg_fast.prepare_encoder_q8s(self._enc_w, scales, self.dtype, self.device)
         dp = vgg_fast.prepare_decoder_q8s(self._dec_w, scales, self.dtype, self.device)
-        encode = (vgg_fast.apply_encoder_q8s_fused if self.engine == "int8-fused"
-                  else vgg_fast.apply_encoder_q8s)
+        fused = self.engine == "int8-fused"
+        encode = vgg_fast.apply_encoder_q8s_fused if fused else vgg_fast.apply_encoder_q8s
+        decode = vgg_fast.apply_decoder_q8s_fused if fused else vgg_fast.apply_decoder_q8s
         self._encode = lambda x: encode(ep, x, self.dtype)
-        # both engines decode through the unfused chain, as ccst_tpu's do
-        self._decode = lambda t: vgg_fast.apply_decoder_q8s(dp, t, self.dtype)
+        self._decode = lambda t: decode(dp, t, self.dtype)
 
     @torch.no_grad()
     def calibrate(self, images, style_stats: Sequence[Tuple], max_images: int = 8) -> None:

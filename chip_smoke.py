@@ -22,7 +22,9 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      variant, batch 32 and the 256 px map); K5 moments (bf16 and float32,
      C = 512 and 500, batch 32; the same bits from two runs), each beside the
      time of an empty kernel launched the same way; K0 int8 conv at every shape of the int8 engines, K1
-     fused level-1 encoder and K2 fused level-1 decoder bit for bit; the int8 A/B
+     fused level-1 encoder and K2 fused level-1 decoder bit for bit, K2 and
+     the two K0 launches it replaces timed on the device from a replayed
+     CUDA graph at batch 4 and 32; the int8 A/B
      kernels bit for bit at the harnesses' full-width shapes: B1 tiled GEMM
      (int8 -> int32, int8 -> float32, bf16 -> float32, M = 2^18, the five
      (K, N) of the sweep; beside it, for comparison only, the one library call
@@ -31,7 +33,8 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      bf16-output ``torch.matmul`` is timed under its own name, since it writes
      half the output bytes), B2
      direct and Winograd conv (full, dots, tf) at (8, 256, 256, 256 -> 256),
-     B3 fused pool1 + conv2_1 (F9, F3) at (128, 256, 256, 256); then ragged
+     B3 fused pool1 + conv2_1 (F9, F3) at (128, 256, 256, 256), the unfused
+     chain (phase max + K0) timed beside it; then ragged
      shapes (odd planes, Cout = 12, one-row tiles, M and N off the tiles);
   4. the main paths through the CLI entry point, in this process, each with
      every launch count zeroed before it and read after it: ``style-bank``
@@ -46,8 +49,10 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      1e-4); ``int8-fused`` against its plain
      composition (MAE <= 1e-3), against ``int8-static`` (bit for bit) and
      against ``ref`` (PSNR > 20 dB); ``apply_decoder_q8s_fused`` (K2) against
-     ``apply_decoder_q8s`` (bit for bit); device-only ``stylize_multi`` times
-     of the three engines;
+     ``apply_decoder_q8s`` (bit for bit) on one AdaIN output, one style's
+     decode timed both ways; device-only ``stylize_multi`` times of the three
+     engines, as a loop of calls and as one replayed CUDA graph (the card's
+     own time: the difference is the host's);
   6. the three int8 A/B harnesses (``ccst_tpu_torch.benchmarks.int8_mm``,
      ``winograd_ab``, ``fused_pool_conv_ab --batch 32``) through their
      ``main()`` in this process, each with every launch count zeroed before it
@@ -64,15 +69,17 @@ runs the same phases on a larger synthetic tree and batch, for the device
 rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
 The line before the last is a JSON object with one entry per kernel, whose
-``launches`` are the phase-4 main paths' counts (K2 is on none of them) and,
+``launches`` are the phase-4 main paths' counts (K2 decodes ``int8-fused``:
+on this card it is faster than the two K0 launches it replaces,
+``replaces_chain_ms``) and,
 for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
 / ``library_ms`` are those of its ``timed_shape``, the one the main paths
 launch it at (K4's and K5's is relu4_1 of a ``--batch-size`` batch, K4's with
 all three banks in the launch, ``timed_styles``; their ``ms`` is the card's
 own time, from a replayed CUDA graph; ``call_ms`` under ``shapes`` is the
-host's rate of calls. K3, K0 and B1 list every
-main-path shape, K3 also its float32 rows, B1 every variant, K4 and K5 every
-timed case, under ``shapes``); the last line is ``{"ok": true, "device":
+host's rate of calls; K2's ``ms`` is device time from a graph too. K3, K0 and
+B1 list every main-path shape, K3 also its float32 rows, B1 every variant, K4,
+K5, K2 and B3 every timed case, under ``shapes``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 import argparse
@@ -180,8 +187,12 @@ K0_EDGE = [
 ]
 # ragged K1 / K2 planes (packed pixels): not multiples of the 8 x 16 tile,
 # 18 rows (which ccst_tpu's row-tile rule rejects), one row; several tiles
-# each way with both edges ragged, exactly one tile, one column of tiles
-LEVEL1_EDGE = [(1, 18, 10), (2, 7, 33), (1, 1, 3), (2, 19, 37), (1, 8, 16), (1, 250, 6)]
+# each way with both edges ragged, exactly one tile, one column of tiles; then
+# planes that put a tile border on every side of K2's edge-replica fix-up: one
+# past a tile each way, exact tiles, 2 x 2
+LEVEL1_EDGE = [(1, 18, 10), (2, 7, 33), (1, 1, 3), (2, 19, 37), (1, 8, 16), (1, 250, 6),
+               (1, 9, 17), (2, 16, 32), (1, 2, 2)]
+K2_BATCHES = (4, 32)  # K2 against the chain it replaces: (batch, 256, 256, 64)
 # B1 at the sweep of benchmarks/pallas_int8_mxu.py: (M, K, N); ragged: M not
 # a multiple of the 192-row tile, N not of the 128-column tile, K ending
 # inside a 128-byte stage in both element types, fewer rows than one wgmma
@@ -196,6 +207,8 @@ B2_EDGE = [(1, 17, 37, 64, 64), (2, 9, 20, 128, 64), (1, 1, 3, 64, 128)]
 # B3 at benchmarks/fused_pool_conv_ab.py's B = 128; ragged: odd planes, 2x2
 B3_MAIN = (128, 256, 256)
 B3_EDGE = [(1, 7, 13), (2, 2, 2), (3, 33, 5)]
+# B3's other output-channel tiles: BN = 64, the narrow BN = 16 (nine taps a stage), two n tiles
+B3_EDGE_COUT = [(1, 7, 13, 64), (2, 2, 2, 12), (3, 33, 5, 136), (2, 17, 35, 64)]
 HARNESS_REPS = ["--reps", "5", "--runs", "3"]
 B3_HARNESS_BATCH = 32
 
@@ -458,11 +471,13 @@ def int8_input(torch, gen, shape, dev):
 def check_int8_kernels(torch, dev, gen, results):
     """Phase 3, int8 part: K0, K1, K2 bit for bit against their plain
     versions at the 512 px shapes, with times; then the ragged shapes."""
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
     from ccst_tpu_torch.kernels.level1 import (
         decoder_level1,
         decoder_level1_reference,
         encoder_level1,
         encoder_level1_reference,
+        prepare_decoder_level1,
         prepare_encoder_level1,
     )
     from ccst_tpu_torch.kernels.qconv import qconv3x3_s8, qconv3x3_s8_reference
@@ -514,7 +529,8 @@ def check_int8_kernels(torch, dev, gen, results):
         check_equal(torch, f"K1 {tag} {(n, hb, wb, 12)}", got, encoder_level1_reference(x, c1, c2))
         d2, d1 = int8_layer(torch, gen, 64, 256, True, dev), int8_layer(torch, gen, 256, 12, False, dev)
         y = int8_input(torch, gen, (n, hb, wb, 64), dev)
-        got2 = decoder_level1(y, d2, d1)
+        dw = prepare_decoder_level1(d2, d1)  # packed once, as the decoder's prep keeps it
+        got2 = decoder_level1(y, d2, d1, torch.bfloat16, dw)
         torch.cuda.synchronize()
         check_equal(torch, f"K2 {tag} {(n, hb, wb, 64)}", got2,
                     decoder_level1_reference(y, d2, d1, torch.bfloat16))
@@ -523,24 +539,58 @@ def check_int8_kernels(torch, dev, gen, results):
         if len(torch.unique(got)) < 20:
             fail("K1: outputs do not spread, the comparison would say little")
         # per packed pixel: the chain's MACs, the bytes in and out, the weights' bytes
-        for k, kernel, plain, macs, px_bytes, w_bytes in (
-            ("K1", lambda: encoder_level1(x, c1, c2, lw),
-             lambda: encoder_level1_reference(x, c1, c2), 108 * 256 + 2304 * 256, 12 + 64,
-             108 * 256 + 2304 * 256),
-            ("K2", lambda: decoder_level1(y, d2, d1),
-             lambda: decoder_level1_reference(y, d2, d1, torch.bfloat16), 576 * 256 + 2304 * 12,
-             64 + 2 * 12, 576 * 256 + 2304 * 12),
-        ):
-            ms = time_ms(torch, kernel)
-            plain_ms = time_ms(torch, plain, reps=2, runs=3)
-            tops = 2 * n * hb * wb * macs / (ms * 1e-3) / 1e12
-            bd = bound(2 * n * hb * wb * macs, INT8_PEAK_TOPS, n * hb * wb * px_bytes + w_bytes)
-            results[k].append(dict(shape=[n, hb, wb, 12 if k == "K1" else 64], max_abs_err=0.0,
-                                   ms=ms, plain_ms=plain_ms, tops=tops, **bd))
-            print(f"{k} level1 {(n, hb, wb)} packed: bit-exact | kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOPS of the unfused chain's MACs) bound {bd['bound_ms']:.4f} ms by "
-                  f"{bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% reached) "
-                  f"plain f64 chain {plain_ms:.4f} ms")
+        k1_macs, k2_macs = 108 * 256 + 2304 * 256, 576 * 256 + 2304 * 12
+        ms = time_ms(torch, lambda: encoder_level1(x, c1, c2, lw))
+        plain_ms = time_ms(torch, lambda: encoder_level1_reference(x, c1, c2), reps=2, runs=3)
+        tops = 2 * n * hb * wb * k1_macs / (ms * 1e-3) / 1e12
+        bd = bound(2 * n * hb * wb * k1_macs, INT8_PEAK_TOPS, n * hb * wb * (12 + 64) + k1_macs)
+        results["K1"].append(dict(shape=[n, hb, wb, 12], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                  tops=tops, **bd))
+        print(f"K1 level1 {(n, hb, wb)} packed: bit-exact | kernel {ms:.4f} ms "
+              f"({tops:.1f} TOPS of the unfused chain's MACs) bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% reached) "
+              f"plain f64 chain {plain_ms:.4f} ms")
+        del x, got
+
+        # K2 and the two K0 launches it replaces in int8-fused (folded dconv1_2 with
+        # requant, packed dconv1_1 with dequant, the int8 intermediate between
+        # them), both on the device from a replayed CUDA graph, at each batch
+        def k0_chain(t):
+            z = qconv3x3_s8(t, d2, True, torch.bfloat16, "edge")
+            return qconv3x3_s8(z, d1, False, torch.bfloat16, "edge")
+
+        for nb in K2_BATCHES:
+            yb = y if nb == n else int8_input(torch, gen, (nb, hb, wb, 64), dev)
+            kernel = lambda: decoder_level1(yb, d2, d1, torch.bfloat16, dw)
+            if nb != n:
+                got_b = kernel()
+                check_equal(torch, f"K2 {(nb, hb, wb, 64)} vs the K0 chain", got_b, k0_chain(yb))
+                # the K0 chain is a kernel too: the last images also against the plain version
+                check_equal(torch, f"K2 {(nb, hb, wb, 64)} images {nb - n}..{nb - 1}", got_b[nb - n:],
+                            decoder_level1_reference(yb[nb - n:], d2, d1, torch.bfloat16))
+                del got_b
+            reps, runs = (20, 5) if nb <= 4 else (5, 3)
+            ms = graph_ms(torch, kernel, reps, runs)["median"]
+            chain_ms = graph_ms(torch, lambda: k0_chain(yb), reps, runs)["median"]
+            row = dict(shape=[nb, hb, wb, 64], max_abs_err=0.0, ms=ms, replaces_chain_ms=chain_ms,
+                       library_ms=None,
+                       **bound(2 * nb * hb * wb * k2_macs, INT8_PEAK_TOPS,
+                               nb * hb * wb * (64 + 2 * 12) + k2_macs))
+            row["tops"] = 2 * nb * hb * wb * k2_macs / (ms * 1e-3) / 1e12
+            line = ""
+            if nb == n:
+                row["call_ms"] = time_ms(torch, kernel)
+                row["plain_ms"] = time_ms(
+                    torch, lambda: decoder_level1_reference(y, d2, d1, torch.bfloat16), reps=2, runs=3)
+                line = (f", {row['call_ms']:.4f} ms a call from the host; plain f64 chain "
+                        f"{row['plain_ms']:.4f} ms")
+            results["K2"].append(row)
+            print(f"K2 level1 {(nb, hb, wb)} packed: bit-exact | kernel {ms:.4f} ms on the device "
+                  f"(CUDA graph of {reps}; {row['tops']:.1f} TOPS of the unfused chain's MACs) bound "
+                  f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+                  f"({100 * row['bound_ms'] / ms:.1f}% reached); the two K0 launches it "
+                  f"replaces {chain_ms:.4f} ms (K2 is {chain_ms / ms:.2f}x)" + line)
+            del yb
     torch.cuda.synchronize()
     print("edge shapes: K0, K1, K2 equal their plain versions")
 
@@ -555,7 +605,13 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
     from ccst_tpu_torch.benchmarks.int8_mm import VARIANTS
     from ccst_tpu_torch.kernels import winograd as wg
     from ccst_tpu_torch.kernels.int8_mm import prepare_mm_weight, tiled_mm, tiled_mm_reference
-    from ccst_tpu_torch.kernels.pool_conv import pool_conv_fused, pool_conv_reference
+    from ccst_tpu_torch.kernels.level1 import phase_max
+    from ccst_tpu_torch.kernels.pool_conv import (
+        pool_conv_fused,
+        pool_conv_reference,
+        prepare_pool_conv,
+    )
+    from ccst_tpu_torch.kernels.qconv import qconv3x3_s8
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(1)  # the big inputs are drawn on the card
@@ -633,29 +689,45 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
     for (n, hb, wb) in (B3_MAIN, *B3_EDGE):
         xp = torch.randint(-5, 120, (n, hb, wb, 256), generator=gen, dtype=torch.int8, device=dev)
         q = int8_layer(torch, cpu_gen, 64, 128, True, dev)
+        wp = prepare_pool_conv(q)  # packed once, as the harness keeps it
         plain = lambda: torch.cat([pool_conv_reference(xp[i:i + 16], q) for i in range(0, n, 16)])
         want = plain()
+        if (n, hb, wb) == B3_MAIN:  # the unfused chain the fused kernel stands against
+            chain = lambda: qconv3x3_s8(phase_max(xp, 64), q, True, torch.int8, "reflect")
+            check_equal(torch, f"B3 unfused chain {(n, hb, wb, 256)}", chain(), want)
+            chain_ms = time_ms(torch, chain, reps=5, runs=3)
         for tag, cat in (("F9", False), ("F3", True)):
-            got = pool_conv_fused(xp, q, cat)
+            got = pool_conv_fused(xp, q, cat, wp)
             torch.cuda.synchronize()
             check_equal(torch, f"B3 {tag} {(n, hb, wb, 256)}", got, want)
             if (n, hb, wb) != B3_MAIN:
                 continue
             if len(torch.unique(got)) < 20:
                 fail(f"B3 {tag}: outputs do not spread, the comparison would say little")
-            ms = time_ms(torch, lambda c=cat: pool_conv_fused(xp, q, c))
+            ms = time_ms(torch, lambda c=cat: pool_conv_fused(xp, q, c, wp))
             plain_ms = time_ms(torch, plain, reps=1, runs=3)
             tops = 2 * n * hb * wb * 576 * 128 / (ms * 1e-3) / 1e12
             bd = bound(2 * n * hb * wb * 576 * 128, INT8_PEAK_TOPS,
                        n * hb * wb * (256 + 128) + 576 * 128)
-            results["B3"].append(dict(shape=[n, hb, wb, 256], cat=cat, max_abs_err=0.0, ms=ms,
-                                      plain_ms=plain_ms, tops=tops, **bd))
+            results["B3"].append(dict(shape=[n, hb, wb, 256], variant=tag, cat=cat, max_abs_err=0.0,
+                                      ms=ms, plain_ms=plain_ms, tops=tops,
+                                      replaces_chain_ms=chain_ms, **bd))
             print(f"B3 pool_conv {tag} {(n, hb, wb, 256)}: bit-exact | kernel {ms:.4f} ms "
                   f"({tops:.1f} TOPS) bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-                  f"plain (phase max + f64 conv) {plain_ms:.4f} ms")
+                  f"({100 * bd['bound_ms'] / ms:.1f}% reached); the unfused chain (phase max + K0) "
+                  f"{chain_ms:.4f} ms ({chain_ms / ms:.2f}x); plain (phase max + f64 conv) "
+                  f"{plain_ms:.4f} ms")
         del want
+    for (n, hb, wb, cout) in B3_EDGE_COUT:
+        xp = torch.randint(-5, 120, (n, hb, wb, 256), generator=gen, dtype=torch.int8, device=dev)
+        q = int8_layer(torch, cpu_gen, 64, cout, True, dev)
+        want = pool_conv_reference(xp, q)
+        for tag, cat in (("F9", False), ("F3", True)):
+            got = pool_conv_fused(xp, q, cat)
+            torch.cuda.synchronize()
+            check_equal(torch, f"B3 {tag} {(n, hb, wb, 256)} -> Cout {cout}", got, want)
     torch.cuda.synchronize()
-    print("edge shapes: B1, B2, B3 equal their plain versions")
+    print("edge shapes: B1, B2, B3 (every output-channel tile) equal their plain versions")
 
 
 def run_harnesses(torch, counters):
@@ -892,8 +964,8 @@ def main() -> int:
             ("calibrate", ["calibrate", *common(root), *target, "--engine", "int8-fused"], {}),
             ("stylize int8-fused", ["stylize", *common(int8_root), *target, "--mode", "overall",
                                     "--engine", "int8-fused"],
-             {"K0": (7 + 9 * n_styles) * n_content_batches, "K1": n_content_batches,
-              "K4": n_content_batches}),
+             {"K0": (7 + 7 * n_styles) * n_content_batches, "K1": n_content_batches,
+              "K2": n_styles * n_content_batches, "K4": n_content_batches}),
             ("style-bank float32", ["style-bank", *common(f32_root, "float32", f32_stats)],
              {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
             ("stylize ref float32", ["stylize", *common(f32_root, "float32", f32_stats), *target,
@@ -919,7 +991,7 @@ def main() -> int:
                 fail("stylize int8-fused did not load the calibration that calibrate wrote")
             for k in counters:
                 launches[k] += got[k]
-        for k in ("K0", "K1", "K3", "K4", "K5"):
+        for k in ("K0", "K1", "K2", "K3", "K4", "K5"):
             if launches[k] == 0:
                 fail(f"{k} was never launched on the main paths")
 
@@ -1071,14 +1143,14 @@ def main() -> int:
                                    scales=scales)
                for name in ("int8-fused", "int8-static")}
     q8 = {}
-    for name, per_batch in (("int8-fused", {"K0": 7 + 9 * n_styles, "K1": 1}),
-                            ("int8-static", {"K0": 9 + 9 * n_styles, "K1": 0})):
+    for name, per_batch in (("int8-fused", {"K0": 7 + 7 * n_styles, "K1": 1, "K2": n_styles}),
+                            ("int8-static", {"K0": 9 + 9 * n_styles, "K1": 0, "K2": 0})):
         for fn in counters.values():
             fn.launches = 0
         q8[name] = engines[name].stylize_multi(images_u8, s_means, s_stds, 1.0)
         torch.cuda.synchronize()
         counts = {k: counters[k].launches for k in ("K0", "K1", "K2", "K3", "K4")}
-        expect = {"K2": 0, "K3": 0, "K4": 1, **per_batch}
+        expect = {"K3": 0, "K4": 1, **per_batch}
         if counts != expect:
             fail(f"{name} stylize_multi: launches {counts}, expected {expect}")
         print(f"{name} stylize_multi: launches {counts} per content batch (as expected)")
@@ -1104,7 +1176,7 @@ def main() -> int:
     if not psnr > PSNR_BAR:
         fail(f"int8-fused vs ref PSNR {psnr:.2f} dB <= {PSNR_BAR}")
 
-    # K2: the fused decoder path against the unfused one, on the AdaIN output
+    # K2: the fused decoder path against the unfused one, on one AdaIN output
     with torch.no_grad():
         featq = vgg_fast.apply_encoder_q8s_fused(ep, (images_u8.float() / 255.0).to(torch.bfloat16))
         t = fused_adain(featq, s_means[0], s_stds[0], 1.0)
@@ -1112,13 +1184,20 @@ def main() -> int:
             fn.launches = 0
         dec_fused = vgg_fast.apply_decoder_q8s_fused(dp, t)
         torch.cuda.synchronize()
-        k2_launches = decoder_level1.launches
-        if k2_launches != 1 or qconv3x3_s8.launches != 7:
-            fail(f"apply_decoder_q8s_fused: K2 {k2_launches}, K0 {qconv3x3_s8.launches} "
-                 "launches, expected 1 and 7")
+        if decoder_level1.launches != 1 or qconv3x3_s8.launches != 7:
+            fail(f"apply_decoder_q8s_fused: K2 {decoder_level1.launches}, K0 "
+                 f"{qconv3x3_s8.launches} launches, expected 1 and 7")
         check_equal(torch, "apply_decoder_q8s_fused vs apply_decoder_q8s", dec_fused,
                     vgg_fast.apply_decoder_q8s(dp, t))
-    print("apply_decoder_q8s_fused (K2) equals apply_decoder_q8s bit for bit")
+        # one style's whole int8 decode either way, on the device from a replayed graph
+        from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
+
+        decode_ms = {name: graph_ms(torch, lambda f=fn: f(dp, t), 10, 5)["median"]
+                     for name, fn in (("int8-decode-fused", vgg_fast.apply_decoder_q8s_fused),
+                                      ("int8-decode-unfused", vgg_fast.apply_decoder_q8s))}
+    print("apply_decoder_q8s_fused (K2) equals apply_decoder_q8s bit for bit; one style's decode "
+          f"of {batch} x {SIZE}px on the device: fused {decode_ms['int8-decode-fused']:.4f} ms, "
+          f"unfused {decode_ms['int8-decode-unfused']:.4f} ms")
 
     # the bank step on the device: one encode of a batch and its moments (K5)
     from ccst_tpu_torch.ops.welford import welford_init
@@ -1131,13 +1210,19 @@ def main() -> int:
     print(f"bank step on the device ({batch} x {SIZE}px, bf16): {bank_ms:.3f} ms/batch = "
           f"{batch / (bank_ms * 1e-3):.1f} img/s")
 
-    rates = {"bank-step": dict(ms=bank_ms, img_s=batch / (bank_ms * 1e-3))}
+    rates = {"bank-step": dict(ms=bank_ms, img_s=batch / (bank_ms * 1e-3)),
+             **{name: dict(ms=ms) for name, ms in decode_ms.items()}}
     for name, eng in (("ref", engine), *engines.items()):
         ms = time_ms(torch, lambda: eng.stylize_multi(images_u8, s_means, s_stds, 1.0),
                      reps=3, runs=5)
-        rates[name] = dict(ms=ms, img_s=batch * n_styles / (ms * 1e-3))
+        # the same batch captured into one CUDA graph and replayed: the card's own
+        # time, with no host between the launches
+        dev_ms = graph_ms(torch, lambda: eng.stylize_multi(images_u8, s_means, s_stds, 1.0), 1, 5)
+        rates[name] = dict(ms=ms, img_s=batch * n_styles / (ms * 1e-3), graph_ms=dev_ms["median"])
         print(f"stylize_multi {name} on the device ({batch} x {SIZE}px, {n_styles} styles): "
-              f"{ms:.2f} ms/batch = {rates[name]['img_s']:.1f} stylized img/s")
+              f"{ms:.2f} ms/batch = {rates[name]['img_s']:.1f} stylized img/s; as one replayed "
+              f"CUDA graph {dev_ms['median']:.2f} ms ({100 * (1 - dev_ms['median'] / ms):.1f}% of "
+              "the eager time is the host's)")
     print("device rates: " + json.dumps({"batch": batch, **rates}))
 
     # -- 6. the int8 A/B harnesses -----------------------------------------
@@ -1158,7 +1243,7 @@ def main() -> int:
                "ccst_tpu/kernels/level1_pallas.py:367", [4, 256, 256, 12], "stylize int8-fused"),
         "K2": ("decoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
                "ccst_tpu/kernels/level1_pallas.py:380", [4, 256, 256, 64],
-               "none: no engine decodes through it (as in ccst_tpu)"),
+               "stylize int8-fused"),
         "B1": ("tiled_mm", "cuda", "ccst_tpu_torch/csrc/int8_mm.cu",
                "benchmarks/pallas_int8_mxu.py:22", B1_MAIN,
                "python -m ccst_tpu_torch.benchmarks.int8_mm"),
@@ -1179,26 +1264,27 @@ def main() -> int:
         main_row = next(r for r in rows if r["shape"] == shape and "ms" in r
                         and r.get("styles", n_styles) == n_styles
                         and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16"
-                        and r.get("variant", "i8i32") == "i8i32"
+                        and r.get("variant", "i8i32") in ("i8i32", "F9")
                         and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False))
         library_ms = main_row.get("cudnn_bf16_ms", main_row.get("library_ms"))
         per_shape = [
             {key: r.get(key) for key in ("layer", "variant", "dtype", "alpha", "styles", "kernel_variant", "shape",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "cudnn_bf16_ms",
                                          "cudnn_f32_ms", "library_ms", "cublas_bf16_out_ms",
-                                         "single_launches_ms", "call_ms", "empty_launch_ms")
+                                         "single_launches_ms", "call_ms", "empty_launch_ms",
+                                         "replaces_chain_ms")
              if key in r}
-            for r in rows if k in ("K3", "K4", "K5", "K0", "B1") and "ms" in r
+            for r in rows if k in ("K3", "K4", "K5", "K0", "K2", "B1", "B3") and "ms" in r
         ]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "path": path,
-            # K2's launches in phase 5's direct apply_decoder_q8s_fused call
-            **({"side_check_launches": k2_launches} if k == "K2" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": library_ms, "timed_shape": shape,
+            **({"call_ms": main_row["call_ms"]} if k == "K2" else {}),
+            **({"replaces_chain_ms": main_row["replaces_chain_ms"]} if k in ("K2", "B3") else {}),
             **({"timed_styles": main_row["styles"]} if "styles" in main_row else {}),
             **({"tops": main_row["tops"]} if "tops" in main_row else {}),
             **({"shapes": per_shape} if per_shape else {}),

@@ -11,7 +11,10 @@ through the numpy model ``level1.simulate_encoder_level1`` (clamped input
 tile, im2col rows around the clamped halo pixel, the intermediate in the conv
 core's planes, taps as start slots, the permuted output columns and the phase
 max over one thread's registers): exactly the plain version's result at ragged
-sizes, and exactly the Pallas kernel's.
+sizes, and exactly the Pallas kernel's. Likewise K2 through
+``level1.simulate_decoder_level1`` (the input tile as planes of pitch 20,
+conv1 over flat positions of that pitch, the edge-replica fix-up on border
+tiles, the narrow tile's accumulator columns).
 """
 import math
 
@@ -151,6 +154,67 @@ def test_simulated_encoder_matches_pallas(rng, q8s):
     lw = level1.prepare_encoder_level1(tq["conv1_1"], tq["conv1_2"])
     np.testing.assert_array_equal(level1.simulate_encoder_level1(x, tq["conv1_1"], lw),
                                   np.asarray(ref))
+
+
+def test_decoder_level1_weight_layout(rng):
+    """dconv1_2 packs as 64-byte stage tiles (two 128-column tiles, nine taps,
+    four 16-byte groups: no zero half), the three taps of a kernel row of one
+    column half one contiguous 24 KB run; dconv1_1 as K0's narrow stage tiles;
+    undoing both gives the layers back."""
+    q2 = _random_layer(rng, 64, 256)
+    q1 = make_qconv(rng.integers(-127, 128, (3, 3, 256, 12)).astype(np.int8),
+                    np.ones(12, np.float32), np.zeros(12, np.float32), True, False, "cpu")
+    dw = level1.prepare_decoder_level1(q2, q1)
+    assert dw.w1p.shape == (2, 1, 9, 4, 128, 16) and dw.w1p.is_contiguous()
+    assert dw.w2p.shape == (1, 2, 9, 8, 16, 16) and dw.w2p.is_contiguous()
+    assert torch.equal(igemm_layout.unpack_stage_tiles(dw.w1p, 64, 256), q2.wq)
+    assert torch.equal(igemm_layout.unpack_stage_tiles(dw.w2p, 256, 12), q1.wq)
+    assert dw.w2p is q1.wp  # K0's own layout for Cout <= 16, not packed twice
+    # stage (column half h, kernel row dy) starts 3 h + dy runs of 24 KB into the array
+    flat = dw.w1p.reshape(-1)
+    stage = 3 * 128 * 64
+    h, dy, dx, grp, n, b = 1, 2, 1, 3, 77, 5
+    at = (3 * h + dy) * stage + dx * 128 * 64 + grp * 128 * 16 + n * 16 + b
+    assert flat[at] == q2.wq[dy, dx, 16 * grp + b, 128 * h + n]
+
+
+# the encoder's ragged planes, then planes that put a tile border on every side
+# of the edge-replica fix-up: exact tiles, one past a tile each way, 2 x 2
+@pytest.mark.parametrize("shape", [(1, 1, 3), (2, 7, 33), (1, 18, 10), (2, 19, 37), (1, 8, 16),
+                                   (1, 50, 6), (1, 9, 17), (2, 16, 32), (1, 2, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_simulated_decoder_matches_plain_version(rng, shape):
+    q2 = _random_layer(rng, 64, 256)
+    wq1 = rng.integers(-127, 128, (3, 3, 256, 12)).astype(np.int8)
+    k1 = (rng.uniform(0.5, 1.5, 12) / (127 * 73 * math.sqrt(9 * 256))).astype(np.float32)
+    q1 = make_qconv(wq1, k1, rng.standard_normal(12).astype(np.float32), True, False, "cpu")
+    dw = level1.prepare_decoder_level1(q2, q1)
+    y = rng.integers(-127, 128, (*shape, 64)).astype(np.int8)
+    want = level1.decoder_level1_reference(torch.from_numpy(y), q2, q1, torch.bfloat16)
+    assert len(torch.unique(want)) > 20  # the outputs spread, so equality says something
+    got = level1.simulate_decoder_level1(y, q2, q1, dw)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_simulated_decoder_matches_pallas(rng, q8s):
+    _, dq, _, tq = q8s
+    y = rng.integers(-127, 128, (2, 16, 16, 64)).astype(np.int8)
+    ref = jl1.decoder_level1(jnp.asarray(y), dq["dconv1_2"], dq["dconv1_1"], ht=8,
+                             interpret=True)
+    dw = level1.prepare_decoder_level1(tq["dconv1_2"], tq["dconv1_1"])
+    got = level1.simulate_decoder_level1(y, tq["dconv1_2"], tq["dconv1_1"], dw)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+def test_decoder_wrapper_takes_prepared_weights(rng, q8s):
+    """The engine packs K2's weights once; on the CPU the wrapper ignores them
+    and runs the plain version."""
+    _, _, _, tq = q8s
+    dw = level1.prepare_decoder_level1(tq["dconv1_2"], tq["dconv1_1"])
+    y = torch.from_numpy(rng.integers(-127, 128, (1, 5, 9, 64)).astype(np.int8))
+    assert torch.equal(
+        level1.decoder_level1(y, tq["dconv1_2"], tq["dconv1_1"], torch.bfloat16, dw),
+        level1.decoder_level1(y, tq["dconv1_2"], tq["dconv1_1"]))
 
 
 def test_encoder_wrapper_takes_prepared_weights(rng):

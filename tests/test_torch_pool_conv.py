@@ -7,7 +7,9 @@ The port's ``build_prep`` gives the same int8 weights and epilogue terms from
 the same float weights, carried across as a ``.npz`` file.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel is held to the
-same plain version on the card by chip_smoke.py.
+same plain version on the card by chip_smoke.py. Its addressing (the pooled
+halo planes by reflect index, the 64-byte weight stages, the accumulator
+columns) is held here through the numpy model ``pool_conv.simulate_pool_conv``.
 """
 import importlib.util
 import os
@@ -20,7 +22,7 @@ import torch
 
 from ccst_tpu.models import convert as jconvert
 from ccst_tpu.models import vgg as jvgg
-from ccst_tpu_torch.kernels import pool_conv
+from ccst_tpu_torch.kernels import igemm_layout, pool_conv
 from ccst_tpu_torch.kernels.qconv import make_qconv
 from ccst_tpu_torch.models import convert as tconvert
 
@@ -67,6 +69,57 @@ def test_odd_planes_match_the_production_chain(fpc, prep, shape):
     xp = _xp(2, shape)
     got = pool_conv.pool_conv_fused(torch.from_numpy(xp), make_qconv(wq, k, kb, False, True, "cpu"))
     np.testing.assert_array_equal(got.numpy(), np.asarray(fpc.production(q)(jnp.asarray(xp))))
+
+
+@pytest.mark.parametrize("cat", [False, True], ids=["F9", "F3"])
+def test_simulated_kernel_matches_pool_conv_fused(fpc, prep, cat):
+    """The kernel's addressing against the JAX harness's fused kernel."""
+    _, wq, k, kb = prep
+    xp = _xp(1, (1, 16, 16, 256))
+    ref = np.asarray(fpc.pool_conv_fused(jnp.asarray(xp), jnp.asarray(wq), k, kb, ht=8, cat=cat,
+                                         interpret=True))
+    ours = make_qconv(wq, k, kb, False, True, "cpu")
+    got = pool_conv.simulate_pool_conv(xp, ours, pool_conv.prepare_pool_conv(ours), cat)
+    np.testing.assert_array_equal(got, ref)
+
+
+# odd planes, the smallest reflectable plane, several tiles each way; Cout on
+# the 128-wide, the 64-wide and the narrow tile, and over two 128-wide tiles
+@pytest.mark.parametrize("cat", [False, True], ids=["F9", "F3"])
+@pytest.mark.parametrize("shape,cout", [((1, 7, 13), 128), ((2, 2, 2), 128), ((3, 33, 5), 128),
+                                        ((1, 9, 20), 64), ((1, 7, 13), 12), ((1, 5, 18), 136)],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_simulated_kernel_matches_plain_version(shape, cout, cat):
+    rng = np.random.default_rng(3)
+    wq = rng.integers(-127, 128, (3, 3, 64, cout)).astype(np.int8)
+    k = (rng.uniform(0.5, 1.5, cout) * 40 / (127 * 73 * 24)).astype(np.float32)
+    q = make_qconv(wq, k, (rng.standard_normal(cout) * 10).astype(np.float32), False, True, "cpu")
+    xp = _xp(4, (*shape, 256))
+    want = pool_conv.pool_conv_reference(torch.from_numpy(xp), q).numpy()
+    assert len(np.unique(want)) > 20  # the outputs spread, so equality says something
+    got = pool_conv.simulate_pool_conv(xp, q, pool_conv.prepare_pool_conv(q), cat)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("cout,bn", [(128, 128), (64, 64), (12, 16), (136, 128)])
+def test_pool_conv_weight_layout(cout, bn):
+    """64-byte stage tiles: K0's output-channel tile, four 16-byte groups (no
+    zero half), the nine taps of a tile one run; they round-trip to HWIO."""
+    rng = np.random.default_rng(5)
+    wq = rng.integers(-127, 128, (3, 3, 64, cout)).astype(np.int8)
+    q = make_qconv(wq, np.ones(cout, np.float32), np.zeros(cout, np.float32), False, True, "cpu")
+    wp = pool_conv.prepare_pool_conv(q)
+    assert wp.shape == (-(-cout // bn), 1, 9, 4, bn, 16) and wp.is_contiguous()
+    assert wp.numel() == -(-cout // bn) * bn * 9 * 64  # dense in K
+    assert torch.equal(igemm_layout.unpack_stage_tiles(wp, 64, cout), q.wq)
+
+
+def test_wrapper_takes_prepared_weights(prep):
+    _, wq, k, kb = prep
+    q = make_qconv(wq, k, kb, False, True, "cpu")
+    xp = torch.from_numpy(_xp(6, (1, 4, 6, 256)))
+    assert torch.equal(pool_conv.pool_conv_fused(xp, q, True, pool_conv.prepare_pool_conv(q)),
+                       pool_conv.pool_conv_fused(xp, q, True))
 
 
 def test_build_prep_matches_jax(fpc, prep, tmp_path):

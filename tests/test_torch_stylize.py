@@ -205,14 +205,30 @@ def test_int8_static_matches_jax_engine(rng, params):
 
 
 @pytest.mark.parametrize("size", [32, 36])
-def test_int8_fused_equals_int8_static(rng, params, size):
+def test_int8_fused_equals_int8_static(rng, params, size, monkeypatch):
     """Self-calibrated on the first batch, as the engines do without scales;
-    36 px gives odd pool sizes (18 -> 9 -> 5) in the int8 encoder."""
+    36 px gives odd pool sizes (18 -> 9 -> 5) in the int8 encoder.
+    ``int8-fused`` goes through both fused level-1 stages (K1 once a batch,
+    K2 once a style), ``int8-static`` through neither."""
+    from ccst_tpu_torch.models import vgg_fast
+
+    calls = {"K1": 0, "K2": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(vgg_fast, "encoder_level1", counted("K1", vgg_fast.encoder_level1))
+    monkeypatch.setattr(vgg_fast, "decoder_level1", counted("K2", vgg_fast.decoder_level1))
     enc, dec, images, s_means, s_stds = _int8_case(rng, params, size)
     outs = {}
-    for engine in ("int8-static", "int8-fused"):
+    for engine, expect in (("int8-static", {"K1": 0, "K2": 0}), ("int8-fused", {"K1": 1, "K2": 2})):
         e = StylizeEngine(enc, dec, dtype=torch.bfloat16, device="cpu", engine=engine)
+        calls.update(K1=0, K2=0)
         outs[engine] = e.stylize_multi(torch.from_numpy(images), s_means, s_stds, 1.0)
+        assert calls == expect, (engine, calls)
         assert e.scales is not None and not e._needs_calibration
     out = -(-size // 8) * 8  # ceil-mode pools: 36 px decodes to 40 px, as in ccst_tpu
     assert outs["int8-static"].shape == (2, 2, out, out, 3)

@@ -91,6 +91,26 @@ def test_prepare_q8s_matches_jax(rng, params, which):
             np.testing.assert_array_equal(getattr(q, field).numpy(), np.asarray(getattr(j, field)))
 
 
+@pytest.mark.parametrize("which", ["encoder", "decoder"])
+def test_prepare_q8s_keeps_the_fused_level1_layouts(rng, params, which):
+    """``"__level1__"`` holds the level-1 pair once more, packed for the fused
+    kernel of that side (K1's or K2's layouts), and undoes to the layers."""
+    from ccst_tpu_torch.kernels import igemm_layout as il
+    from ccst_tpu_torch.kernels import level1
+
+    raw = params[0] if which == "encoder" else params[1]
+    prep = getattr(tf, f"prepare_{which}_q8s")(tf.cast_params(raw, torch.bfloat16), _scales(rng))
+    lw = prep["__level1__"]
+    if which == "encoder":
+        assert isinstance(lw, level1.Level1Weights)
+        order = torch.from_numpy(il.level1_column_order(64, 128))
+        assert torch.equal(il.unpack_stage_tiles(lw.w2p, 256, 256), prep["conv1_2"].wq[..., order])
+    else:
+        assert isinstance(lw, level1.DecoderLevel1Weights)
+        assert torch.equal(il.unpack_stage_tiles(lw.w1p, 64, 256), prep["dconv1_2"].wq)
+        assert torch.equal(il.unpack_stage_tiles(lw.w2p, 256, 12), prep["dconv1_1"].wq)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_static_matches_jax(rng, dtype):
     scale = 0.37 / 127.0
