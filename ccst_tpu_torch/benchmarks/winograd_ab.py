@@ -9,7 +9,8 @@ inputs and weights, and its result keys:
                                          into a /4 shift)
   k0_ms         the port's production int8 conv (K0, ``qconv3x3_s8``, edge
                 padding) at the same shape; the reference's ``xla_ms``
-  direct_ms     ``kernels/winograd.py::conv_direct``
+  direct_ms     ``kernels/winograd.py::conv_direct``: the same K0 kernel and
+                weights with the reference's row offset
   wino_{full,dots,tf}_ms   ``conv_wino`` whole, without the transform
                 (dots), without the products (tf)
 
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ccst_tpu_torch import benchmarks as bm
-from ccst_tpu_torch.kernels.qconv import make_qconv, qconv3x3_s8
+from ccst_tpu_torch.kernels.qconv import qconv3x3_s8
 from ccst_tpu_torch.kernels.winograd import (
     MODES,
     conv_direct,
@@ -74,15 +75,13 @@ def build(args, dev):
     uq, su = wino_weights(wq)
     # the V /4 shift cancels the (2G)^2 = 4x in U, so k = su * ws here
     k_wino = np.asarray(su) * np.asarray(ws, np.float32).reshape(-1) * in_s / (4.0 / 127.0)
-    conv = make_wino_conv(wq, uq, k_dir, k_wino, kb, dev)
-    k0 = make_qconv(wq, k_dir, kb, False, True, dev)
-    return torch.from_numpy(x).to(dev), conv, k0
+    return torch.from_numpy(x).to(dev), make_wino_conv(wq, uq, k_dir, k_wino, kb, dev)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = bm.device_of(args)
-    x, conv, k0 = build(args, dev)
+    x, conv = build(args, dev)
     out_d = conv_direct(x, conv)
     out_w = conv_wino(x, conv, "full")
     bm.check_equal("conv_direct image 0", out_d[:1], conv_direct_reference(x[:1], conv))
@@ -98,7 +97,8 @@ def main(argv=None) -> dict:
     }
     if dev.type == "cuda":
         ops = 2 * x.numel() * 9 * args.cout
-        result["k0_ms"] = bm.time_ms(lambda: qconv3x3_s8(x, k0, True, torch.int8, "edge"), args)
+        k0 = lambda: qconv3x3_s8(x, conv.direct, True, torch.int8, "edge")
+        result["k0_ms"] = bm.time_ms(k0, args)
         result["direct_ms"] = bm.time_ms(lambda: conv_direct(x, conv), args)
         for mode in MODES:
             result[f"wino_{mode}_ms"] = bm.time_ms(lambda m=mode: conv_wino(x, conv, m), args)

@@ -69,6 +69,7 @@ struct ConvGeom {
   int tiles_x, tiles_y;    // spatial tiles of one image
   int ntiles_n;            // output-channel tiles
   int reflect;             // 1: reflect padding, 0: edge padding
+  int row_shift;           // output row h is centred on input row h - row_shift (0: a plain conv)
   int a_slots, b_slots;    // slots allocated in dynamic shared memory
 };
 
@@ -309,7 +310,7 @@ __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc
     for (int i = 0; i < A_ITEMS; ++i) {
       const int p = (tid >> 3) + (THREADS / GROUPS) * i;
       const int hy = p / HALO_W, hx = p - hy * HALO_W;
-      const int gy = pad_index(y0 - 1 + hy, g.H, g.reflect);
+      const int gy = pad_index(y0 - 1 - g.row_shift + hy, g.H, g.reflect);
       const int gx = pad_index(x0 - 1 + hx, g.W, g.reflect);
       pix[i] = p < HALO_PX ? (n * g.H + gy) * g.W + gx : -1;
     }
@@ -545,7 +546,7 @@ constexpr int min_blocks(int BN) { return BN <= 64 ? 3 : 2; }
 inline int pick_bn(int cout, int narrow) { return cout <= narrow ? narrow : (cout <= 64 ? 64 : 128); }
 
 inline ConvGeom make_geom(int N, int H, int W, int cin_bytes, int Cout, int BN, int TPS,
-                          int reflect) {
+                          int reflect, int row_shift = 0) {
   ConvGeom g;
   g.N = N; g.H = H; g.W = W;
   g.cin_bytes = cin_bytes;
@@ -555,6 +556,7 @@ inline ConvGeom make_geom(int N, int H, int W, int cin_bytes, int Cout, int BN, 
   g.tiles_y = (H + TH - 1) / TH;
   g.ntiles_n = (Cout + BN - 1) / BN;
   g.reflect = reflect;
+  g.row_shift = row_shift;
   const int stages = TPS == 1 ? 4 : 3;
   const int steps = g.nchunks * (9 / TPS);
   g.b_slots = steps < stages ? steps : stages;

@@ -256,8 +256,8 @@ qconv3x3_s8_gather_kernel(const int8_t* __restrict__ x, const int8_t* __restrict
 template <int BN, int TPS, int OUT>
 cudaError_t launch_wgmma(const void* x, const void* wp, const void* k, const void* kb, void* y,
                          int N, int H, int W, int Cin, int Cout, int reflect, int relu,
-                         cudaStream_t st) {
-  const ConvGeom g = make_geom(N, H, W, Cin, Cout, BN, TPS, reflect);
+                         int row_shift, cudaStream_t st) {
+  const ConvGeom g = make_geom(N, H, W, Cin, Cout, BN, TPS, reflect, row_shift);
   return launch(qconv3x3_s8_wgmma_kernel<BN, TPS, OUT>, g, smem_bytes(g, BN, TPS), st,
                 static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wp),
                 static_cast<const float*>(k), static_cast<const float*>(kb), y, relu);
@@ -266,15 +266,19 @@ cudaError_t launch_wgmma(const void* x, const void* wp, const void* k, const voi
 template <int OUT>
 cudaError_t launch_out(const void* x, const void* wp, const void* k, const void* kb, void* y,
                        int N, int H, int W, int Cin, int Cout, int reflect, int relu,
-                       cudaStream_t st) {
+                       int row_shift, cudaStream_t st) {
   if (Cin % 16 == 0) {
     const int bn = pick_bn(Cout, 16);
     if (bn == 16)
-      return launch_wgmma<16, 9, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+      return launch_wgmma<16, 9, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu,
+                                      row_shift, st);
     if (bn == 64)
-      return launch_wgmma<64, 1, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
-    return launch_wgmma<128, 1, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+      return launch_wgmma<64, 1, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu,
+                                      row_shift, st);
+    return launch_wgmma<128, 1, OUT>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu,
+                                     row_shift, st);
   }
+  if (row_shift) return cudaErrorInvalidValue;  // the gather route centres every output
   const long long M = (long long)N * H * W;
   const int Kp = (9 * Cin + BK - 1) / BK * BK, Np = (Cout + BNG - 1) / BNG * BNG;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(Np / BNG));
@@ -293,17 +297,20 @@ cudaError_t launch_out(const void* x, const void* wp, const void* k, const void*
 // for Cin % 16 == 0 the stage tiles [n tile][chunk][tap][8][BN][16 int8] with
 // BN = 16 (Cout <= 16), 64 (<= 64) or 128; otherwise the (roundup(Cout, 64),
 // roundup(9*Cin, 64)) matrix of the gather kernel. reflect: 1 reflect, 0 edge
-// padding. Launches on `stream` and returns the first CUDA error (0 on success).
+// padding. row_shift: output row h is the conv centred on input row h -
+// row_shift (0 on every engine path; 1 is the direct side of the Winograd A/B,
+// kernels/winograd.py::conv_direct; the wgmma route only). Launches on
+// `stream` and returns the first CUDA error (0 on success).
 extern "C" int ccst_qconv3x3_s8(const void* x, const void* wp, const void* k, const void* kb,
                                 void* y, int N, int H, int W, int Cin, int Cout, int reflect,
-                                int relu, int out_kind, void* stream) {
+                                int relu, int out_kind, int row_shift, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (out_kind == 0)
-    err = launch_out<0>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+    err = launch_out<0>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, row_shift, st);
   else if (out_kind == 1)
-    err = launch_out<1>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+    err = launch_out<1>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, row_shift, st);
   else
-    err = launch_out<2>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, st);
+    err = launch_out<2>(x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, row_shift, st);
   return static_cast<int>(err);
 }

@@ -28,11 +28,24 @@
 // earlier scalar-gather kernel on mma.sync (wmma) tiles below, picked by Cin
 // alone, with its own (Kp, Np) weight matrix.
 //
-// float32 (the engines' verification mode, --dtype float32) is a third kernel
-// of the same gather family: float32 operands, FFMA sums in float32 in the
-// order of K, no tensor cores and so no TF32 rounding anywhere, for any Cin
-// and Cout. It is bound by the float32 FFMA rate (67 TFLOP/s, a fifteenth of
-// the bf16 tensor rate) and is held to being exact, not fast.
+// float32 (the engines' verification mode, --dtype float32) is exact: float32
+// operands, FFMA sums in float32, no tensor cores and so no TF32 rounding
+// anywhere. It is bound by the float32 FFMA rate (67 TFLOP/s on an H100 SXM at
+// 700 W, a fifteenth of the bf16 tensor rate) at every layer but the two
+// few-channel ones: conv1_1 by writing its output, dconv1_1 (Cout = 3) by
+// reading its 64-channel input. Cin % 4 == 0 (every float32 layer but conv1_1)
+// takes the stage kernel below: a block's tile of 8 x 16 pixels x 128 output
+// channels (16 x 16 x 64 where Cout <= 64; 32 x 64 x 4 or 8 for the narrow
+// Cout <= 8), 256 threads of 8 pixels x 8 channels; per chunk of 8 input
+// channels (4 for the narrow tile) the reflected halo is copied once with
+// 16-byte cp.async into a pixel-major plane (a pixel's channels are one
+// aligned run, so every tap's read of a pixel is a float4) and the chunk's
+// weights, packed on the host as [n tile][chunk][tap][ci][BN], arrive as one
+// cp.async.bulk on an mbarrier; the next chunk's halo and weights are in
+// flight while this chunk's FFMAs run, one block barrier a chunk. Each step
+// is an outer product: four float4 loads of one pixel's channels and of the
+// held weights feed 16 FFMAs a load. Sums run chunk, then tap, then channel.
+// conv1_1 (Cin = 3) keeps the scalar-gather FFMA kernel, picked by Cin.
 #include <mma.h>
 
 #include "conv_igemm_sm90.cuh"
@@ -191,7 +204,7 @@ reflect_conv3x3_gather_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// ---- float32: scalar gather, FFMA tiles ------------------------------------
+// ---- float32, Cin % 4 != 0 (conv1_1): scalar gather, FFMA tiles ------------
 
 constexpr int FBM = 128;       // output pixels per block
 constexpr int FBN = 64;        // output channels per block
@@ -288,6 +301,185 @@ reflect_conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict_
   }
 }
 
+// ---- float32, Cin % 4 == 0: the chunk's halo and weights resident, FFMA ----
+
+namespace f32 {
+
+constexpr int THREADS = 256;
+constexpr int PX = 8;  // pixels of a thread: neighbours in one tile row
+
+// The tile of an output-channel width BN (kernels/conv.py::f32_tile mirrors it).
+template <int BN> struct Tile {
+  static constexpr int CG = BN >= 64 ? BN / 8 : 1;       // threads along N (channel groups)
+  static constexpr int HALVES = BN >= 8 ? 2 : 1;         // float4s of channels a thread: 4 cg + h BN / 2
+  static constexpr int PGW = 32 / CG;                    // tile rows of a warp
+  static constexpr int TWG = BN >= 64 ? 2 : 8;           // pixel groups along a tile row
+  static constexpr int TW = TWG * PX;                    // 16, or 64 for the narrow tile
+  static constexpr int TH = THREADS / 32 / TWG * PGW;    // 8 (BN 128), 16 (BN 64), 32 (narrow)
+  static constexpr int CK = BN >= 64 ? 8 : 4;            // input channels a chunk
+  // floats of a halo row: four past the pixels, so that the rows a warp reads
+  // at once start on different banks (20 or 12 banks apart)
+  static constexpr int RP = (TW + 2) * CK + 4;
+  static constexpr int HALO_F = (TH + 2) * RP;
+  static constexpr int STAGE_F = 9 * CK * BN;            // one chunk's weights
+  static constexpr int PIECES = CK / 4;                  // 16-byte pieces of a pixel's chunk
+  static constexpr size_t SMEM = 2 * (HALO_F + STAGE_F) * sizeof(float) + 16;
+};
+
+struct Geom {
+  int N, H, W, Cin, Cout;
+  int nchunks, tiles_x, tiles_y, ntiles_n;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 2)
+reflect_conv3x3_f32_stage_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                                 const float* __restrict__ bias, float* __restrict__ y, int relu,
+                                 const Geom g) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(128) float fsm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = lane % T::CG;
+  const int hx = warp % T::TWG;
+  const int row = warp / T::TWG * T::PGW + lane / T::CG;
+  int b = blockIdx.x;
+  const int ntile = b % g.ntiles_n; b /= g.ntiles_n;
+  const int x0 = b % g.tiles_x * T::TW; b /= g.tiles_x;
+  const int y0 = b % g.tiles_y * T::TH;
+  const int n = b / g.tiles_y;
+  const int n0 = ntile * BN;
+  const uint32_t bars = smem_u32(fsm + 2 * (T::HALO_F + T::STAGE_F));
+
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // chunk c into buffer c % 2: the reflected halo by 16-byte copies (zero
+  // past Cin, where the weights are zero too), the weights by one bulk copy
+  auto load = [&](int c) {
+    float* halo = fsm + (c & 1) * T::HALO_F;
+    for (int it = tid; it < (T::TH + 2) * (T::TW + 2) * T::PIECES; it += THREADS) {
+      const int p = it / T::PIECES, piece = it - p * T::PIECES;
+      const int hy = p / (T::TW + 2), hxx = p - hy * (T::TW + 2);
+      const int gy = pad_index(y0 - 1 + hy, g.H, 1), gx = pad_index(x0 - 1 + hxx, g.W, 1);
+      const int ci = c * T::CK + 4 * piece;
+      const bool in = ci < g.Cin;
+      const float* src = in ? x + (static_cast<size_t>(n * g.H + gy) * g.W + gx) * g.Cin + ci : x;
+      cp_async16(smem_u32(halo + hy * T::RP + hxx * T::CK + 4 * piece), src, in);
+    }
+    if (tid == 0) {
+      const uint32_t bar = bars + 8 * (c & 1);
+      fence_proxy_async();  // the bulk copy overwrites what generic loads last read
+      mbar_expect_tx(bar, T::STAGE_F * 4);
+      bulk_load(smem_u32(fsm + 2 * T::HALO_F + (c & 1) * T::STAGE_F),
+                wp + (static_cast<size_t>(ntile) * g.nchunks + c) * T::STAGE_F, T::STAGE_F * 4, bar);
+    }
+  };
+
+  float acc[PX][T::HALVES][4];
+#pragma unroll
+  for (int i = 0; i < PX; ++i)
+#pragma unroll
+    for (int h = 0; h < T::HALVES; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.0f;
+
+  load(0);
+  cp_async_commit();
+  for (int c = 0; c < g.nchunks; ++c) {
+    cp_async_wait<0>();  // this thread's copies of chunk c have landed
+    __syncthreads();     // everyone's have, and nobody still reads buffer (c + 1) % 2
+    if (c + 1 < g.nchunks) load(c + 1);
+    cp_async_commit();
+    mbar_wait(bars + 8 * (c & 1), (c >> 1) & 1);
+
+    const float* halo = fsm + (c & 1) * T::HALO_F + row * T::RP + hx * PX * T::CK;
+    const float* wst = fsm + 2 * T::HALO_F + (c & 1) * T::STAGE_F + 4 * cg;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - dy * 3;
+      const float* a_tap = halo + dy * T::RP + dx * T::CK;
+      const float* b_tap = wst + tap * T::CK * BN;
+#pragma unroll
+      for (int c4 = 0; c4 < T::CK; c4 += 4) {
+        float4 wb[4][T::HALVES];  // channels c4 .. c4 + 3 of the chunk, this thread's outputs
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int h = 0; h < T::HALVES; ++h)
+            wb[q][h] = *reinterpret_cast<const float4*>(b_tap + (c4 + q) * BN + h * (BN / 2));
+#pragma unroll
+        for (int i = 0; i < PX; ++i) {
+          const float4 a4 = *reinterpret_cast<const float4*>(a_tap + i * T::CK + c4);
+          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int h = 0; h < T::HALVES; ++h) {
+              acc[i][h][0] = fmaf(a[q], wb[q][h].x, acc[i][h][0]);
+              acc[i][h][1] = fmaf(a[q], wb[q][h].y, acc[i][h][1]);
+              acc[i][h][2] = fmaf(a[q], wb[q][h].z, acc[i][h][2]);
+              acc[i][h][3] = fmaf(a[q], wb[q][h].w, acc[i][h][3]);
+            }
+        }
+      }
+    }
+  }
+
+  // epilogue: bias + ReLU in float32, 16-byte stores where Cout % 4 == 0
+  const int oy = y0 + row;
+  if (oy >= g.H) return;
+#pragma unroll
+  for (int h = 0; h < T::HALVES; ++h) {
+    const int co = n0 + 4 * cg + h * (BN / 2);
+    if (co >= g.Cout) continue;
+    float bv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = co + j < g.Cout ? bias[co + j] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < PX; ++i) {
+      const int ox = x0 + hx * PX + i;
+      if (ox >= g.W) continue;
+      float out[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = acc[i][h][j] + bv[j];
+        out[j] = relu ? fmaxf(v, 0.0f) : v;
+      }
+      float* dst = y + (static_cast<size_t>(n * g.H + oy) * g.W + ox) * g.Cout + co;
+      if ((g.Cout & 3) == 0) {
+        *reinterpret_cast<float4*>(dst) = make_float4(out[0], out[1], out[2], out[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (co + j < g.Cout) dst[j] = out[j];
+      }
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch_stage(const void* x, const void* wp, const void* bias, void* y, int N, int H,
+                         int W, int Cin, int Cout, int relu, cudaStream_t st) {
+  using T = Tile<BN>;
+  Geom g{N, H, W, Cin, Cout, (Cin + T::CK - 1) / T::CK, (W + T::TW - 1) / T::TW,
+         (H + T::TH - 1) / T::TH, (Cout + BN - 1) / BN};
+  auto kernel = reflect_conv3x3_f32_stage_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(T::SMEM));
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(N) * g.tiles_y * g.tiles_x * g.ntiles_n;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, T::SMEM, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wp), static_cast<const float*>(bias),
+      static_cast<float*>(y), relu, g);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
 template <int BN, int TPS>
 cudaError_t launch_wgmma(const void* x, const void* wp, const void* bias, void* y, int N, int H,
                          int W, int Cin, int Cout, int relu, cudaStream_t st) {
@@ -331,16 +523,32 @@ extern "C" int ccst_reflect_conv3x3_bf16(const void* x, const void* wp, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// The float32 entry point: x, bias, y float32; wp the float32
-// (roundup(9*Cin, 32), roundup(Cout, 64)) matrix of kernels/conv.py::pack_weight,
-// for any Cin. Exact float32 (FFMA, no tensor cores). Same contract otherwise.
+// The float32 entry point: x, bias, y float32; exact float32 (FFMA, no tensor
+// cores). wp: for Cin % 4 == 0 the stage tiles [n tile][chunk][tap][ci][BN] of
+// kernels/conv.py::pack_f32_stages (BN = 4 for Cout <= 4, 8 for <= 8, 64 for
+// <= 64, else 128; chunks of 8 channels, 4 for BN <= 8); otherwise the float32
+// (roundup(9*Cin, 32), roundup(Cout, 64)) matrix of the gather kernel. Same
+// contract otherwise.
 extern "C" int ccst_reflect_conv3x3_f32(const void* x, const void* wp, const void* bias, void* y,
                                         int N, int H, int W, int Cin, int Cout, int relu,
                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Cin % 4 == 0) {
+    cudaError_t err;
+    if (Cout <= 4)
+      err = f32::launch_stage<4>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+    else if (Cout <= 8)
+      err = f32::launch_stage<8>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+    else if (Cout <= 64)
+      err = f32::launch_stage<64>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+    else
+      err = f32::launch_stage<128>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+    return static_cast<int>(err);
+  }
   const long long M = (long long)N * H * W;
   const int Kp = (9 * Cin + FBK - 1) / FBK * FBK, Np = (Cout + FBN - 1) / FBN * FBN;
   dim3 grid((unsigned)((M + FBM - 1) / FBM), (unsigned)(Np / FBN));
-  reflect_conv3x3_f32_kernel<<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  reflect_conv3x3_f32_kernel<<<grid, FTHREADS, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(wp), static_cast<const float*>(bias),
       static_cast<float*>(y), N, H, W, Cin, Cout, Kp, Np, relu);
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,7 @@
 // Shared pieces of the int8 kernels (qconv3x3_s8.cu, level1_s8.cu,
-// pool_conv_s8.cu, winograd_s8.cu): the mma.sync int8 instruction of the two
-// that still use it, the edge index map and the float epilogue that reproduces
+// pool_conv_s8.cu, winograd_s8.cu): the mma.sync int8 instruction of the one
+// route that still uses it (K0's 4-byte gather for Cin % 16 != 0), the edge
+// index map and the float epilogue that reproduces
 // ccst_tpu/models/vgg_fast.py::_qconv_s bit for bit.
 #pragma once
 #include <cuda_bf16.h>

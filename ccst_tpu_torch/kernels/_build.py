@@ -40,14 +40,14 @@ SIGNATURES = {
     "ccst_channel_moments": [_P] * 4 + [_L] + [_I] * 3 + [_P],
     # stream
     "ccst_empty_launch": [_P],
-    # x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, out_kind, stream
-    "ccst_qconv3x3_s8": [_P] * 5 + [_I] * 8 + [_P],
+    # x, wp, k, kb, y, N, H, W, Cin, Cout, reflect, relu, out_kind, row_shift, stream
+    "ccst_qconv3x3_s8": [_P] * 5 + [_I] * 9 + [_P],
     # x, w1, k1, kb1, w2, k2, kb2, y, N, Hb, Wb, Cin, Cout, pool, stream
     "ccst_fused_two_conv_s8": [_P] * 8 + [_I] * 6 + [_P],
     # x, wp, y, M, N, K, kind, stream
     "ccst_tiled_mm": [_P] * 3 + [_I] * 4 + [_P],
-    # x, w, k, kb, y, N, Hb, Wb, Cin, Cout, Kp, wino, mode, stream
-    "ccst_winograd_s8": [_P] * 5 + [_I] * 8 + [_P],
+    # x, up, k, kb, y, N, Hb, Wb, Cin, Cout, mode, stream
+    "ccst_winograd_s8": [_P] * 5 + [_I] * 6 + [_P],
     # xp, wp, k, kb, y, N, Hb, Wb, Cout, cat, stream
     "ccst_pool_conv_s8": [_P] * 5 + [_I] * 5 + [_P],
 }

@@ -71,12 +71,14 @@ def pad_index(i: np.ndarray, n: int, reflect: bool) -> np.ndarray:
     return np.clip(i, 0, n - 1)
 
 
-def simulate_conv(x: np.ndarray, packed: np.ndarray, cout: int, reflect: bool) -> np.ndarray:
+def simulate_conv(x: np.ndarray, packed: np.ndarray, cout: int, reflect: bool,
+                  row_shift: int = 0) -> np.ndarray:
     """The sums the kernel forms, (N, H, W, cout) in ``x.dtype`` (use float64
     or int64): per block the halo gather by index, the planes, each tap as a
     start slot ``dy * 18 + dx`` into them, the rows of a warpgroup's 64 as
     ``start + (r // 8) * 18 + r % 8``, and the weights read from ``packed``
-    as the kernel's descriptors walk it."""
+    as the kernel's descriptors walk it. ``row_shift`` is ``ConvGeom``'s:
+    output row h is the conv centred on input row h - row_shift."""
     n_img, h, w, cin = x.shape
     tiles, chunks, taps, groups, bn, per_group = packed.shape
     per_chunk = groups * per_group
@@ -86,7 +88,7 @@ def simulate_conv(x: np.ndarray, packed: np.ndarray, cout: int, reflect: bool) -
         for y0 in range(0, h, TILE_H):
             for x0 in range(0, w, TILE_W):
                 p = np.arange(HALO_PX)
-                gy = pad_index(y0 - 1 + p // HALO_W, h, reflect)
+                gy = pad_index(y0 - 1 - row_shift + p // HALO_W, h, reflect)
                 gx = pad_index(x0 - 1 + p % HALO_W, w, reflect)
                 acc = np.zeros((2, 64, tiles * bn), x.dtype)
                 for c in range(chunks):

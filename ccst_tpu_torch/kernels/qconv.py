@@ -130,25 +130,21 @@ def _check_operands(x: torch.Tensor, *weights: torch.Tensor) -> None:
         raise ValueError("the int8 conv kernels need 16-byte aligned operands")
 
 
-def qconv3x3_s8(
-    x: torch.Tensor, q: QConvS, relu: bool, out_dtype: torch.dtype, pad_mode: str
-) -> torch.Tensor:
-    """(N, H, W, Cin) int8 -> (N, H, W, Cout): int8 when ``q.requant``, else
-    ``out_dtype``. The CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor. ``pad_mode`` is ``"edge"`` or ``"reflect"``."""
-    if pad_mode not in ("edge", "reflect"):
-        raise ValueError(f"pad_mode must be 'edge' or 'reflect', got {pad_mode!r}")
-    if x.device.type == "cpu":
-        return qconv3x3_s8_reference(x, q.wq, q.k, q.kb, relu, q.requant, out_dtype, pad_mode)
+def launch_qconv(x: torch.Tensor, q: QConvS, relu: bool, out: torch.dtype, pad_mode: str,
+                 row_shift: int = 0) -> torch.Tensor:
+    """Launch K0 on a CUDA tensor after the checks its kernel needs; the
+    caller counts the launch. ``row_shift``: output row h is the conv centred
+    on input row h - row_shift (the wgmma route only: Cin % 16 == 0)."""
     n, h, w, cin = x.shape
     kh, kw, wcin, cout = q.wq.shape
     if (kh, kw, wcin) != (3, 3, cin):
         raise ValueError(f"weights {tuple(q.wq.shape)} do not fit input {tuple(x.shape)}")
     if cin % 4:
         raise ValueError(f"the int8 conv kernel needs Cin % 4 == 0, got {cin}")
+    if row_shift and not uses_wgmma(cin):
+        raise ValueError(f"a row shift needs Cin % 16 == 0, got {cin}")
     if pad_mode == "reflect" and (h < 2 or w < 2):
         raise ValueError(f"reflection padding needs H, W >= 2, got {h}x{w}")
-    out = torch.int8 if q.requant else out_dtype
     if out not in _OUT_KIND:
         raise TypeError(f"the int8 conv kernel writes int8, bfloat16 or float32, not {out}")
     _check_operands(x, q.wp, q.k, q.kb)
@@ -161,10 +157,24 @@ def qconv3x3_s8(
         rc = lib.ccst_qconv3x3_s8(
             x.data_ptr(), q.wp.data_ptr(), q.k.data_ptr(), q.kb.data_ptr(), y.data_ptr(),
             n, h, w, cin, cout, int(pad_mode == "reflect"), int(relu),
-            _OUT_KIND[out], stream,
+            _OUT_KIND[out], row_shift, stream,
         )
     if rc:
         raise RuntimeError(f"qconv3x3_s8 launch failed: CUDA error {rc}")
+    return y
+
+
+def qconv3x3_s8(
+    x: torch.Tensor, q: QConvS, relu: bool, out_dtype: torch.dtype, pad_mode: str
+) -> torch.Tensor:
+    """(N, H, W, Cin) int8 -> (N, H, W, Cout): int8 when ``q.requant``, else
+    ``out_dtype``. The CUDA kernel on a CUDA tensor, the plain version on a CPU
+    tensor. ``pad_mode`` is ``"edge"`` or ``"reflect"``."""
+    if pad_mode not in ("edge", "reflect"):
+        raise ValueError(f"pad_mode must be 'edge' or 'reflect', got {pad_mode!r}")
+    if x.device.type == "cpu":
+        return qconv3x3_s8_reference(x, q.wq, q.k, q.kb, relu, q.requant, out_dtype, pad_mode)
+    y = launch_qconv(x, q, relu, torch.int8 if q.requant else out_dtype, pad_mode)
     qconv3x3_s8.launches += 1
     return y
 

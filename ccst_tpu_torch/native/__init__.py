@@ -3,10 +3,18 @@
 Falls back gracefully: if ``libccst_io.so`` is absent, an automatic
 ``make``-based build is attempted once; if that fails (no toolchain), callers
 get ``available() == False`` and use the PIL path.
+
+Several processes may start on a fresh tree at once (the test workers, one
+CLI process per domain). The build therefore runs under an exclusive
+``fcntl`` lock on a file beside the library, into a name of its own, and is
+moved into place with ``os.replace``: no process loads a half-written
+library, and a process that finds the lock taken waits for that build
+instead of concluding that there is no library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -16,21 +24,48 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_HERE, "libccst_io.so")
+_LOCK = _SO + ".lock"
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
 def _build() -> bool:
+    """Build into a private name and move it into place; the caller holds
+    the file lock."""
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["make", "-C", _HERE, "libccst_io.so"],
+            ["make", "-C", _HERE, f"OUT={os.path.basename(tmp)}"],
             check=True,
             capture_output=True,
         )
-        return os.path.exists(_SO)
+        os.replace(tmp, _SO)
+        return True
     except Exception:
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _open() -> Optional[ctypes.CDLL]:
+    """The library, built first if needed, under the file lock: when the
+    lock is ours no other process is writing the library."""
+    try:
+        fd = os.open(_LOCK, os.O_RDWR | os.O_CREAT, 0o644)
+    except OSError:
+        return None
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        if not os.path.exists(_SO) and not _build():
+            return None
+        try:
+            return ctypes.CDLL(_SO)
+        except OSError:
+            return None
+    finally:
+        os.close(fd)  # closing the descriptor releases the lock
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -39,11 +74,8 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) and not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+        lib = _open()
+        if lib is None:
             return None
         lib.ccst_decode_resize.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)

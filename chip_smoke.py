@@ -16,8 +16,10 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      each input read and each output written once, over 3.35 TB/s): K3 conv at
      every distinct shape of the ``ref`` engine at 512 px, batch 4, cuDNN's
      bf16 conv timed beside it for comparison only, and its exact float32
-     route (TF32 off everywhere, rtol = atol = 1e-4) at conv1_1, conv3_2,
-     dconv1_1 and two ragged shapes; K4 AdaIN for one and three style banks
+     route (TF32 off everywhere, rtol = atol = 1e-4) at every shape of the
+     path and three ragged ones, cuDNN's float32 conv timed beside each; a
+     K3 or K0 row under 0.1 ms is also timed from a replayed CUDA graph
+     (``graph_ms``); K4 AdaIN for one and three style banks
      (bf16 and float32, alpha 1.0 and 0.6, the resident and the streamed
      variant, batch 32 and the 256 px map); K5 moments (bf16 and float32,
      C = 512 and 500, batch 32; the same bits from two runs), each beside the
@@ -31,8 +33,9 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      that computes the same function: ``torch._int_mm`` for int8 -> int32 and
      ``torch.mm(x, w, out_dtype=torch.float32)`` for bf16 -> float32; the
      bf16-output ``torch.matmul`` is timed under its own name, since it writes
-     half the output bytes), B2
-     direct and Winograd conv (full, dots, tf) at (8, 256, 256, 256 -> 256),
+     half the output bytes), B2 direct (K0's kernel with the reference's row
+     offset) and Winograd conv (full, dots, tf) at (8, 256, 256, 256 -> 256),
+     each and K0 at the same shape (``k0_ms``) from a replayed CUDA graph,
      B3 fused pool1 + conv2_1 (F9, F3) at (128, 256, 256, 256), the unfused
      chain (phase max + K0) timed beside it; then ragged
      shapes (odd planes, Cout = 12, one-row tiles, M and N off the tiles);
@@ -51,8 +54,8 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      against ``ref`` (PSNR > 20 dB); ``apply_decoder_q8s_fused`` (K2) against
      ``apply_decoder_q8s`` (bit for bit) on one AdaIN output, one style's
      decode timed both ways; device-only ``stylize_multi`` times of the three
-     engines, as a loop of calls and as one replayed CUDA graph (the card's
-     own time: the difference is the host's);
+     engines and of the float32 ``ref`` engine, as a loop of calls and as one
+     replayed CUDA graph (the card's own time: the difference is the host's);
   6. the three int8 A/B harnesses (``ccst_tpu_torch.benchmarks.int8_mm``,
      ``winograd_ab``, ``fused_pool_conv_ab --batch 32``) through their
      ``main()`` in this process, each with every launch count zeroed before it
@@ -79,7 +82,8 @@ all three banks in the launch, ``timed_styles``; their ``ms`` is the card's
 own time, from a replayed CUDA graph; ``call_ms`` under ``shapes`` is the
 host's rate of calls; K2's ``ms`` is device time from a graph too. K3, K0 and
 B1 list every main-path shape, K3 also its float32 rows, B1 every variant, K4,
-K5, K2 and B3 every timed case, under ``shapes``); the last line is ``{"ok": true, "device":
+K5, K2, B2 and B3 every timed case, under ``shapes``; B2's rows carry ``k0_ms``);
+the last line is ``{"ok": true, "device":
 {...}}``.
 """
 import argparse
@@ -129,15 +133,13 @@ K3_SHAPES = [
     ("ragged", (2, 37, 53, 64, 128)),
 ]
 K3_MAIN = (4, 512, 512, 64, 64)
-# K3's float32 route: the first, a middle and the last layer of the 512 px
-# path, then ragged planes with Cin and Cout off every vector width
-K3_F32_SHAPES = [
-    ("conv1_1", (4, 512, 512, 3, 64)),
-    ("conv3_2..3_4, dconv3_4..3_2", (4, 128, 128, 256, 256)),
-    ("dconv1_1", (4, 512, 512, 64, 3)),
-    ("ragged", (2, 37, 53, 64, 128)),
-    ("ragged", (3, 17, 9, 5, 7)),
-]
+# K3's float32 route (``--dtype float32``) at every shape of the 512 px path,
+# then ragged planes: Cin and Cout off every vector width (the scalar gather),
+# Cout = 3 (the narrow tile) on a plane that is no multiple of its 32 x 64 tile
+K3_F32_SHAPES = [*((layer, shape) for layer, shape in K3_SHAPES if layer != "ragged"),
+                 ("ragged", (2, 37, 53, 64, 128)), ("ragged", (3, 17, 9, 5, 7)),
+                 ("ragged Cout = 3", (3, 45, 70, 64, 3))]
+GRAPH_BELOW_MS = 0.1  # a kernel row under this also gets its time from a replayed CUDA graph
 def relu4_1_shape(batch):
     """What K4 and K5 are given on the 512 px main paths: a batch's relu4_1."""
     return (batch, SIZE // 8, SIZE // 8, 512)
@@ -201,9 +203,10 @@ B1_SHAPES = [(256, 256), (512, 512), (2304, 256), (576, 256), (1152, 128)]
 B1_MAIN = [B1_M, 2304, 256]
 B1_EDGE = [(1000, 48, 24), (77, 2304, 136), (300, 80, 40), (5, 256, 128)]
 # B2 at the packed conv1_2 shape of benchmarks/winograd_ab.py; ragged: odd
-# planes (partial 2x2 tiles), one row
+# planes (partial 2x2 tiles and 16 x 16 blocks), one row, four chunks with a
+# second 128-channel tile half past Cout
 B2_MAIN = (8, 256, 256, 256, 256)
-B2_EDGE = [(1, 17, 37, 64, 64), (2, 9, 20, 128, 64), (1, 1, 3, 64, 128)]
+B2_EDGE = [(1, 17, 37, 64, 64), (2, 9, 20, 128, 64), (1, 1, 3, 64, 128), (2, 40, 33, 256, 192)]
 # B3 at benchmarks/fused_pool_conv_ab.py's B = 128; ragged: odd planes, 2x2
 B3_MAIN = (128, 256, 256)
 B3_EDGE = [(1, 7, 13), (2, 2, 2), (3, 33, 5)]
@@ -502,15 +505,19 @@ def check_int8_kernels(torch, dev, gen, results):
         plain_ms = time_ms(torch, plain, reps=2, runs=3)
         tops = 2 * n * h * w * 9 * cin * cout / (ms * 1e-3) / 1e12
         bd = conv_bound((n, h, w, cin, cout), INT8_PEAK_TOPS, 1, 1 if requant else 2)
-        results["K0"].append(dict(layer=layer, shape=[n, h, w, cin, cout], pad=pad,
-                                  requant=requant, relu=relu, max_abs_err=0.0, ms=ms,
-                                  plain_ms=plain_ms, tops=tops,
-                                  peak_share=tops / INT8_PEAK_TOPS, **bd))
-        print(f"K0 qconv {layer} {(n, h, w, cin, cout)} {pad} "
-              f"{'requant' if requant else 'dequant bf16'} relu={relu}: bit-exact "
-              f"| kernel {ms:.4f} ms ({tops:.1f} TOPS, {100 * tops / INT8_PEAK_TOPS:.1f}% "
-              f"of {INT8_PEAK_TOPS:.0f}) bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-              f"({100 * bd['bound_ms'] / ms:.1f}% reached) plain f64 {plain_ms:.4f} ms")
+        row = dict(layer=layer, shape=[n, h, w, cin, cout], pad=pad, requant=requant, relu=relu,
+                   max_abs_err=0.0, ms=ms, plain_ms=plain_ms, tops=tops,
+                   peak_share=tops / INT8_PEAK_TOPS, **bd)
+        line = (f"K0 qconv {layer} {(n, h, w, cin, cout)} {pad} "
+                f"{'requant' if requant else 'dequant bf16'} relu={relu}: bit-exact "
+                f"| kernel {ms:.4f} ms ({tops:.1f} TOPS, {100 * tops / INT8_PEAK_TOPS:.1f}% "
+                f"of {INT8_PEAK_TOPS:.0f}) bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                f"({100 * bd['bound_ms'] / ms:.1f}% reached) plain f64 {plain_ms:.4f} ms")
+        if ms < GRAPH_BELOW_MS:
+            row["graph_ms"] = graph_ms(torch, kernel, 20, 5)["median"]
+            line += f"; graph {row['graph_ms']:.4f} ms"
+        results["K0"].append(row)
+        print(line)
 
     for (n, h, w, cin, cout), pad, requant, relu in K0_EDGE:
         x = int8_input(torch, gen, (n, h, w, cin), dev)
@@ -603,6 +610,7 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
 
     from ccst_tpu_torch import benchmarks as bm
     from ccst_tpu_torch.benchmarks.int8_mm import VARIANTS
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
     from ccst_tpu_torch.kernels import winograd as wg
     from ccst_tpu_torch.kernels.int8_mm import prepare_mm_weight, tiled_mm, tiled_mm_reference
     from ccst_tpu_torch.kernels.level1 import phase_max
@@ -663,28 +671,34 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
         cases += [("B2-wino", mode, lambda m=mode: wg.conv_wino(x, c, m),
                    lambda m=mode: wg.conv_wino_reference(x, c, m))
                   for mode in wg.MODES if mode != "tf" or cout <= cin]
+        main = (n, h, w, cin, cout) == B2_MAIN
+        if main:  # the production conv at the same shape: the A/B's yardstick
+            k0_ms = graph_ms(torch, lambda: qconv3x3_s8(x, c.direct, True, torch.int8, "edge"),
+                             10, 5)["median"]
         for kid, mode, kernel, plain in cases:
             got = kernel()
             torch.cuda.synchronize()
             check_equal(torch, f"{kid} {mode} {(n, h, w, cin, cout)}", got, plain())
-            if (n, h, w, cin, cout) != B2_MAIN:
+            if not main:
                 continue
             if mode in ("direct", "full") and len(torch.unique(got)) < 20:
                 fail(f"{kid} {mode}: outputs do not spread, the comparison would say little")
-            ms = time_ms(torch, kernel)
+            ms = graph_ms(torch, kernel, 10, 5)["median"]
             plain_ms = time_ms(torch, plain, reps=2, runs=3)
             tops = 2 * n * h * w * 9 * cin * cout / (ms * 1e-3) / 1e12
             results[kid].append(dict(shape=[n, h, w, cin, cout], mode=mode, max_abs_err=0.0,
-                                     ms=ms, plain_ms=plain_ms, tops=tops))
+                                     ms=ms, plain_ms=plain_ms, tops=tops, k0_ms=k0_ms))
             # Winograd F(2x2, 3x3) multiplies 16 positions per 2 x 2 outputs, not 36
             bd = conv_bound((n, h, w, cin, cout), INT8_PEAK_TOPS, 1, 1)
             if kid == "B2-wino":
                 bd = bound(2 * n * h * w * 4 * cin * cout, INT8_PEAK_TOPS,
                            n * h * w * (cin + cout) + 16 * cin * cout)
             results[kid][-1].update(bd)
-            print(f"{kid} {mode} {(n, h, w, cin, cout)}: bit-exact | kernel {ms:.4f} ms "
-                  f"({tops:.1f} direct-conv TOPS) bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-                  f"plain f64 {plain_ms:.4f} ms")
+            print(f"{kid} {mode} {(n, h, w, cin, cout)}: bit-exact | kernel {ms:.4f} ms on the "
+                  f"device (CUDA graph of 10; {tops:.1f} direct-conv TOPS) bound "
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                  f"({100 * bd['bound_ms'] / ms:.1f}% reached); K0 at the same shape {k0_ms:.4f} "
+                  f"ms ({k0_ms / ms:.2f}x the kernel); plain f64 {plain_ms:.4f} ms")
 
     for (n, hb, wb) in (B3_MAIN, *B3_EDGE):
         xp = torch.randint(-5, 120, (n, hb, wb, 256), generator=gen, dtype=torch.int8, device=dev)
@@ -780,6 +794,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
 
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
     from ccst_tpu_torch.kernels import _build
     from ccst_tpu_torch.kernels.adain import (
         fused_adain,
@@ -849,11 +864,16 @@ def main() -> int:
                 lib = time_ms(torch, cudnn_bf16_conv(torch, x, cw))
                 torch.backends.cudnn.benchmark = False
                 row.update(ms=ms, plain_ms=plain, cudnn_bf16_ms=lib, **bd)
-                print(f"K3 conv {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean {mean:.3e} "
-                      f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) bound "
-                      f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% "
-                      f"reached) cuDNN bf16 {lib:.4f} ms ({flop / (lib * 1e-3) / 1e12:.1f} TFLOP/s) "
-                      f"plain f32 {plain:.4f} ms")
+                line = (f"K3 conv {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean {mean:.3e} "
+                        f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) bound "
+                        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                        f"({100 * bd['bound_ms'] / ms:.1f}% reached) cuDNN bf16 {lib:.4f} ms "
+                        f"({flop / (lib * 1e-3) / 1e12:.1f} TFLOP/s) plain f32 {plain:.4f} ms")
+                if ms < GRAPH_BELOW_MS:
+                    row["graph_ms"] = graph_ms(torch, lambda: reflect_conv3x3(x, cw, True), 20,
+                                               5)["median"]
+                    line += f"; graph {row['graph_ms']:.4f} ms"
+                print(line)
             else:
                 print(f"K3 conv {layer} {(n, h, w, cin, cout)} relu=False: max {mx:.3e} mean {mean:.3e}")
             results["K3"].append(row)
@@ -876,16 +896,22 @@ def main() -> int:
                                    **K3_F32_TOL)
             row = dict(layer=layer, shape=[n, h, w, cin, cout], relu=relu, dtype="torch.float32",
                        max_abs_err=mx, mean_abs_err=mean)
-            if relu and layer != "ragged":
+            if relu:  # every shape timed once, cuDNN's float32 conv (TF32 off) beside it
                 ms = time_ms(torch, lambda: reflect_conv3x3(x, cw, True), reps=3, runs=3)
                 plain = time_ms(torch, lambda: reflect_conv3x3_reference(x, cw.w, cw.b, True),
                                 reps=2, runs=3)
                 lib = time_ms(torch, cudnn_bf16_conv(torch, x, cw), reps=2, runs=3)
                 row.update(ms=ms, plain_ms=plain, cudnn_f32_ms=lib, **bd)
-                print(f"K3 conv float32 {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean {mean:.3e} "
-                      f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s) bound "
-                      f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% "
-                      f"reached) cuDNN float32, TF32 off {lib:.4f} ms plain {plain:.4f} ms")
+                line = (f"K3 conv float32 {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean "
+                        f"{mean:.3e} | kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.2f} TFLOP/s) "
+                        f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                        f"({100 * bd['bound_ms'] / ms:.1f}% reached) cuDNN float32, TF32 off "
+                        f"{lib:.4f} ms ({lib / ms:.2f}x the kernel) plain {plain:.4f} ms")
+                if ms < GRAPH_BELOW_MS:
+                    row["graph_ms"] = graph_ms(torch, lambda: reflect_conv3x3(x, cw, True), 20,
+                                               5)["median"]
+                    line += f"; graph {row['graph_ms']:.4f} ms"
+                print(line)
             else:
                 print(f"K3 conv float32 {layer} {(n, h, w, cin, cout)} relu={relu}: "
                       f"max {mx:.3e} mean {mean:.3e}")
@@ -1106,7 +1132,7 @@ def main() -> int:
           f"{(got32 - ref_out).abs().mean().item():.3e}; launches {counts} (as expected)")
     if not mae32 <= F32_MAE_BAR:
         fail(f"float32 whole-path MAE {mae32:.3e} > {F32_MAE_BAR}")
-    del engine32, got32, want32, feat32
+    del got32, want32, feat32
 
     # int8-fused, from the scales calibrate wrote, against its plain composition
     def plain_q8s(ep, dp, images):
@@ -1190,8 +1216,6 @@ def main() -> int:
         check_equal(torch, "apply_decoder_q8s_fused vs apply_decoder_q8s", dec_fused,
                     vgg_fast.apply_decoder_q8s(dp, t))
         # one style's whole int8 decode either way, on the device from a replayed graph
-        from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
-
         decode_ms = {name: graph_ms(torch, lambda f=fn: f(dp, t), 10, 5)["median"]
                      for name, fn in (("int8-decode-fused", vgg_fast.apply_decoder_q8s_fused),
                                       ("int8-decode-unfused", vgg_fast.apply_decoder_q8s))}
@@ -1212,7 +1236,7 @@ def main() -> int:
 
     rates = {"bank-step": dict(ms=bank_ms, img_s=batch / (bank_ms * 1e-3)),
              **{name: dict(ms=ms) for name, ms in decode_ms.items()}}
-    for name, eng in (("ref", engine), *engines.items()):
+    for name, eng in (("ref", engine), *engines.items(), ("ref-float32", engine32)):
         ms = time_ms(torch, lambda: eng.stylize_multi(images_u8, s_means, s_stds, 1.0),
                      reps=3, runs=5)
         # the same batch captured into one CUDA graph and replayed: the card's own
@@ -1247,7 +1271,7 @@ def main() -> int:
         "B1": ("tiled_mm", "cuda", "ccst_tpu_torch/csrc/int8_mm.cu",
                "benchmarks/pallas_int8_mxu.py:22", B1_MAIN,
                "python -m ccst_tpu_torch.benchmarks.int8_mm"),
-        "B2-direct": ("conv_direct", "cuda", "ccst_tpu_torch/csrc/winograd_s8.cu",
+        "B2-direct": ("conv_direct", "cuda", "ccst_tpu_torch/csrc/qconv3x3_s8.cu",
                       "benchmarks/winograd_ab.py:73", list(B2_MAIN),
                       "python -m ccst_tpu_torch.benchmarks.winograd_ab"),
         "B2-wino": ("conv_wino", "cuda", "ccst_tpu_torch/csrc/winograd_s8.cu",
@@ -1268,13 +1292,13 @@ def main() -> int:
                         and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False))
         library_ms = main_row.get("cudnn_bf16_ms", main_row.get("library_ms"))
         per_shape = [
-            {key: r.get(key) for key in ("layer", "variant", "dtype", "alpha", "styles", "kernel_variant", "shape",
-                                         "ms", "plain_ms", "bound_ms", "bound_by", "cudnn_bf16_ms",
-                                         "cudnn_f32_ms", "library_ms", "cublas_bf16_out_ms",
-                                         "single_launches_ms", "call_ms", "empty_launch_ms",
-                                         "replaces_chain_ms")
+            {key: r.get(key) for key in ("layer", "variant", "mode", "dtype", "alpha", "styles",
+                                         "kernel_variant", "shape", "ms", "graph_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "cudnn_bf16_ms", "cudnn_f32_ms",
+                                         "library_ms", "cublas_bf16_out_ms", "single_launches_ms",
+                                         "call_ms", "empty_launch_ms", "replaces_chain_ms", "k0_ms")
              if key in r}
-            for r in rows if k in ("K3", "K4", "K5", "K0", "K2", "B1", "B3") and "ms" in r
+            for r in rows if "ms" in r
         ]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -1285,6 +1309,7 @@ def main() -> int:
             "library_ms": library_ms, "timed_shape": shape,
             **({"call_ms": main_row["call_ms"]} if k == "K2" else {}),
             **({"replaces_chain_ms": main_row["replaces_chain_ms"]} if k in ("K2", "B3") else {}),
+            **({"k0_ms": main_row["k0_ms"]} if k.startswith("B2") else {}),
             **({"timed_styles": main_row["styles"]} if "styles" in main_row else {}),
             **({"tops": main_row["tops"]} if "tops" in main_row else {}),
             **({"shapes": per_shape} if per_shape else {}),

@@ -16,10 +16,15 @@ from ccst_tpu_torch.kernels.conv import (
     NARROW_N,
     TILE_K,
     TILE_N,
+    f32_bn,
+    f32_tile,
+    pack_f32_stages,
     pack_weight,
     prepare_conv,
     reflect_conv3x3,
     reflect_conv3x3_reference,
+    simulate_f32_conv,
+    unpack_f32_stages,
 )
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -187,17 +192,70 @@ def test_device_tensor_reaches_the_build(monkeypatch, dtype, cin):
 
 @pytest.mark.parametrize("cin,cout", [(3, 64), (64, 3), (80, 130)])
 def test_packed_weight_layout_float32(rng, cin, cout):
-    """float32 weights take the gather kernels' matrix whatever Cin: rows
-    HWIO's (dy, dx, ci) in order, zero padded to the tile, still float32."""
+    """float32 weights stay float32. Cin % 4 != 0 (conv1_1) takes the gather
+    kernel's matrix: rows HWIO's (dy, dx, ci) in order, zero padded to the
+    tile. Every other Cin takes the float32 stage tiles."""
     wk = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(np.float32))
     packed = pack_weight(wk)
-    kp, np_ = packed.shape
     assert packed.dtype == torch.float32
+    cw = prepare_conv(wk, torch.zeros(cout), torch.float32, "cpu")
+    assert torch.equal(cw.packed, packed) and cw.w.dtype == torch.float32
+    if cin % 4 == 0:
+        assert torch.equal(packed, pack_f32_stages(wk))
+        return
+    kp, np_ = packed.shape
     assert (kp, np_) == (-(-9 * cin // TILE_K) * TILE_K, -(-cout // TILE_N) * TILE_N)
     assert torch.equal(packed[: 9 * cin, :cout].reshape(3, 3, cin, cout), wk)
     assert packed[9 * cin :].abs().sum() == 0 and packed[:, cout:].abs().sum() == 0
-    cw = prepare_conv(wk, torch.zeros(cout), torch.float32, "cpu")
-    assert torch.equal(cw.packed, packed) and cw.w.dtype == torch.float32
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 3), (12, 7), (68, 130), (64, 64), (256, 256)])
+def test_f32_stage_packing_round_trips(rng, cin, cout):
+    """(n tiles, chunks, 9, ck, bn): one chunk's stage is one run of
+    [tap][input channel][output channel], zero past Cin and Cout."""
+    wk = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(np.float32))
+    packed = pack_f32_stages(wk)
+    t = f32_tile(f32_bn(cout))
+    assert packed.shape == (-(-cout // t.bn), -(-cin // t.ck), 9, t.ck, t.bn)
+    assert packed.is_contiguous() and packed.dtype == torch.float32
+    assert torch.equal(unpack_f32_stages(packed, cin, cout), wk)
+    assert torch.count_nonzero(packed) == torch.count_nonzero(wk)
+    # tap (dy, dx) = (2, 1), input channel ck + 1 (chunk 1), output channel 2
+    if cin > t.ck + 1:
+        assert packed[0, 1, 7, 1, 2] == wk[2, 1, t.ck + 1, 2]
+
+
+def test_f32_tiles_are_the_kernels():
+    """8 x 16 pixels x 128 channels, 16 x 16 x 64, 32 x 64 x 8 or 4: 256
+    threads of 8 pixels, a warp's rows on different banks of the halo."""
+    got = {bn: f32_tile(bn) for bn in (4, 8, 64, 128)}
+    assert [(t.th, t.tw, t.ck) for t in got.values()] == [(32, 64, 4), (32, 64, 4), (16, 16, 8),
+                                                         (8, 16, 8)]
+    for t in got.values():
+        assert t.th * t.tw == 256 * 8 // t.cg and t.rp % 4 == 0
+        starts = {(r * t.rp) % 32 for r in range(min(t.pgw, 8))}
+        assert len(starts) == min(t.pgw, 8)  # float4 reads of the warp's rows: no bank conflict
+    assert [f32_bn(c) for c in (3, 4, 7, 8, 9, 64, 65, 512)] == [4, 4, 8, 8, 64, 64, 128, 128]
+
+
+# ragged shapes for the model of the float32 kernel: Cin 4 / 12 / 68 (chunks
+# of 4 and 8 channels, a chunk half past Cin), Cout 3 / 7 / 130 / 64 / 8, planes
+# that are no multiple of any tile, down to 2 x 2
+F32_MODEL_SHAPES = [(2, 11, 19, 4, 3), (1, 2, 2, 12, 7), (1, 17, 9, 68, 130), (3, 5, 70, 12, 64),
+                    (1, 40, 3, 4, 8), (1, 2, 3, 68, 3)]
+
+
+@pytest.mark.parametrize("shape", F32_MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_f32_kernel_addressing_model_equals_plain_version(rng, shape):
+    """The float32 stage kernel's halo planes, thread tiles, tap offsets and
+    weight stages, walked in numpy, give the plain version's sums within 1e-5
+    (the model sums in float64, the plain version in float32)."""
+    n, h, w, cin, cout = shape
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    wk = torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32))
+    got = simulate_f32_conv(x.astype(np.float64), pack_f32_stages(wk).double().numpy(), cout)
+    want = reflect_conv3x3_reference(torch.from_numpy(x), wk, torch.zeros(cout), relu=False)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
@@ -268,6 +326,20 @@ def test_ptxas_report_parses_verbose_output():
         dict(kernel="qconv3x3_s8_wgmma_kernel<128,1,2>", registers=128, smem_bytes=1024,
              spill_store_bytes=124, spill_load_bytes=120),
         dict(kernel="plain", registers=30, smem_bytes=0, spill_store_bytes=0, spill_load_bytes=0)]}
+
+
+@pytest.mark.parametrize("mangled,short", [
+    ("_ZN47_GLOBAL__N__5d1c2e3f_18_reflect_conv3x3_cu_1a2b3c4d3f3232reflect_conv3x3_f32_stage_kernel"
+     "ILi128EEEvPKfS3_S3_PfiNS0_4GeomE", "reflect_conv3x3_f32_stage_kernel<128>"),
+    ("_ZN45_GLOBAL__N__7e6f5a4b_14_winograd_s8_cu_9f8e7d6c14wino_s8_kernelEPKaPKhPKfS6_Paiiiii",
+     "wino_s8_kernel"),
+])
+def test_ptxas_report_names_this_ports_kernels(mangled, short):
+    """The float32 stage kernel (inside a namespace whose name ends in
+    digits) and the Winograd kernel keep their names in the report."""
+    from ccst_tpu_torch.benchmarks.ptxas_report import short_name
+
+    assert short_name(mangled) == short
 
 
 def test_compare_smoke_puts_logs_side_by_side():

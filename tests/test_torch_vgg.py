@@ -12,6 +12,7 @@ import torch
 
 from ccst_tpu.models import convert as jconvert
 from ccst_tpu.models import vgg as jvgg
+from ccst_tpu_torch.kernels import conv as tconv
 from ccst_tpu_torch.kernels import igemm_layout
 from ccst_tpu_torch.models import convert as tconvert
 from ccst_tpu_torch.models import vgg as tvgg
@@ -36,8 +37,9 @@ def test_arch_specs_equal_jax(which):
 
 def test_from_jax_params_bridge(jax_params):
     """A ccst_tpu numpy parameter tree goes straight into prepare_params, for
-    the float32 route (every 3x3 layer the gather kernels' matrix) and for
-    bfloat16 (stage tiles where Cin is a multiple of 8)."""
+    the float32 route (float32 stage tiles where Cin is a multiple of 4, else
+    the gather kernel's matrix) and for bfloat16 (stage tiles where Cin is a
+    multiple of 8)."""
     enc_np, _ = jax_params
     for dtype in (torch.float32, torch.bfloat16):
         prepared = tvgg.prepare_params(enc_np, dtype, "cpu")
@@ -50,7 +52,9 @@ def test_from_jax_params_bridge(jax_params):
             cin, cout = p["w"].shape[2:]
             if p["w"].shape[0] != 3:
                 assert cw.packed is None
-            elif dtype == torch.float32 or cin % 8:  # the gather paths' (Kp, Np) matrix
+            elif dtype == torch.float32 and cin % 4 == 0:  # the float32 stage tiles
+                assert torch.equal(tconv.unpack_f32_stages(cw.packed, cin, cout), w)
+            elif cin % 8 or dtype == torch.float32:  # the gather paths' (Kp, Np) matrix
                 assert cw.packed.dtype == dtype
                 assert torch.equal(cw.packed[:9 * cin, :cout], w.reshape(9 * cin, cout))
             else:          # the wgmma path's stage tiles

@@ -11,7 +11,11 @@ centred on input row h - 1. The port copies it; ``test_direct_row_offset``
 pins it, and ROADMAP.md lists it among the gaps in the reference.
 
 On the CPU the wrappers run the plain versions; the CUDA kernels are held to
-the same plain versions on the card by chip_smoke.py.
+the same plain versions on the card by chip_smoke.py. Here the numpy models of
+their addressing are held to the plain versions bit for bit: the direct conv
+is K0's kernel with a row shift (``igemm_layout.simulate_conv``), the Winograd
+kernel's halo planes, position planes, stages and phase sums are
+``winograd.simulate_wino``.
 """
 import importlib.util
 import os
@@ -23,6 +27,7 @@ import torch
 
 from ccst_tpu.models import vgg_fast as jf
 from ccst_tpu_torch.kernels import qconv, winograd
+from ccst_tpu_torch.kernels.igemm_layout import requant_relu, simulate_conv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -77,8 +82,8 @@ def test_direct_row_offset():
     x, wq, uq, k_dir, k_wino, kb = _case(1, (1, 16, 64, 64), 64)
     c = winograd.make_wino_conv(wq, uq, k_dir, k_wino, kb, "cpu")
     got = winograd.conv_direct(torch.from_numpy(x), c).numpy()
-    centred = qconv.qconv3x3_s8_reference(torch.from_numpy(x), c.w.reshape(3, 3, 64, 64),
-                                          c.k_dir, c.kb, True, True, torch.int8, "edge").numpy()
+    centred = qconv.qconv3x3_s8_reference(torch.from_numpy(x), c.direct.wq, c.direct.k, c.kb,
+                                          True, True, torch.int8, "edge").numpy()
     np.testing.assert_array_equal(got[:, 1:], centred[:, :-1])
     assert not np.array_equal(got[:, 0], centred[:, 0])
 
@@ -137,7 +142,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         winograd.conv_wino(xm, meta, "tf")
     odd = winograd.make_wino_conv(*_case(5, (1, 4, 4, 32), 64)[1:], "meta")
     with pytest.raises(ValueError, match="multiples of 64"):
-        winograd.conv_direct(torch.empty((1, 4, 4, 32), dtype=torch.int8, device="meta"), odd)
+        winograd.conv_wino(torch.empty((1, 4, 4, 32), dtype=torch.int8, device="meta"), odd)
+    # the direct conv is K0's wgmma route with a row shift: 16-byte channel groups
+    narrow = winograd.make_wino_conv(*_case(5, (1, 4, 4, 12), 64)[1:], "meta")
+    with pytest.raises(ValueError, match="row shift needs Cin % 16"):
+        winograd.conv_direct(torch.empty((1, 4, 4, 12), dtype=torch.int8, device="meta"), narrow)
     assert (winograd.conv_wino.launches, winograd.conv_direct.launches) == before
 
 
@@ -151,3 +160,75 @@ def test_harness_runs_plain_on_cpu():
     assert not any(k.endswith("_ms") for k in res)  # no CPU timings
     args = harness.parse_args(["--reps", "2", "--runs", "3"])
     assert harness.planned_launches(args) == {"qconv3x3_s8": 7, "conv_direct": 8, "conv_wino": 22}
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 192), (192, 128)])
+def test_wino_stage_packing_round_trips(cin, cout):
+    """(n tiles, chunks, 16, 4, 128, 16): one position's stage of one chunk is
+    8 KB, [16-byte group of K][output channel][16 input channels], zero past
+    Cout."""
+    uq = np.random.default_rng(cin + cout).integers(-127, 128, (16, cin, cout)).astype(np.int8)
+    up = winograd.pack_wino_stages(uq)
+    tiles = -(-cout // winograd.WINO_N)
+    assert up.shape == (tiles, cin // 64, 16, 4, 128, 16) and up.flags.c_contiguous
+    np.testing.assert_array_equal(winograd.unpack_wino_stages(up, cin, cout), uq)
+    assert np.count_nonzero(up) == np.count_nonzero(uq)
+    # position 5, input channel 64 + 16 + 3 (chunk 1, group 1), output channel 130 (tile 1)
+    if cin > 83 and cout > 130:
+        assert up[1, 1, 5, 1, 2, 3] == uq[5, 83, 130]
+
+
+# the A/B's ragged shapes (chip_smoke.py B2_EDGE): odd planes, one row; then
+# a plane smaller than one block with two chunks, two n tiles of which one is
+# half past Cout
+B2_MODEL_SHAPES = [(1, 17, 37, 64, 64), (2, 9, 20, 128, 64), (1, 1, 3, 64, 128),
+                   (2, 5, 7, 128, 64), (1, 6, 18, 64, 192)]
+
+
+@pytest.mark.parametrize("shape", B2_MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_direct_model_on_k0s_core_equals_plain_version(shape):
+    """conv_direct is K0's kernel with row_shift = 1: its halo gather, planes,
+    taps and stages (simulate_conv) give the plain version's bits."""
+    x, wq, uq, k_dir, k_wino, kb = _case(6, shape[:4], shape[4], k_scale=0.5)
+    c = winograd.make_wino_conv(wq, uq, k_dir, k_wino, kb, "cpu")
+    sums = simulate_conv(x.astype(np.int64), c.direct.wp.numpy().astype(np.int64), shape[4],
+                         reflect=False, row_shift=1)
+    got = requant_relu(sums, k_dir, kb).astype(np.int8)
+    want = winograd.conv_direct_reference(torch.from_numpy(x), c).numpy()
+    assert len(np.unique(want)) > 5
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,mode", [(s, m) for s in B2_MODEL_SHAPES for m in winograd.MODES
+                                        if m != "tf" or s[4] <= s[3]],  # tf: Cout <= Cin
+                         ids=lambda v: v if isinstance(v, str) else "x".join(map(str, v)))
+def test_wino_kernel_model_equals_plain_version(shape, mode):
+    """The Winograd kernel's halo planes (even columns, then odd), transform
+    into 16 position planes, descriptor walks of V and of the U stages, phase
+    sums with A^T's signs and row-to-tile map (simulate_wino), then the
+    kernel's epilogue, give conv_wino_reference's bits in every mode."""
+    n, h, w, cin, cout = shape
+    x, wq, uq, k_dir, k_wino, kb = _case(7, (n, h, w, cin), cout,
+                                         {"full": 1.0, "dots": 0.05, "tf": 2e3}[mode])
+    c = winograd.make_wino_conv(wq, uq, k_dir, k_wino, kb, "cpu")
+    sums = winograd.simulate_wino(x, c.up.numpy(), cout, mode)
+    got = requant_relu(sums, k_wino, kb).astype(np.int8)
+    want = winograd.conv_wino_reference(torch.from_numpy(x), c, mode).numpy()
+    assert len(np.unique(want)) > 3
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["no-adds", "no-products", "neither"])
+def test_ablation_cuts_what_it_names_out_of_the_kernel(name):
+    """benchmarks/wino_ablation.py times copies of csrc/winograd_s8.cu with
+    statements replaced by empty ones; each must still be found in the
+    kernel's source, and nothing else may change."""
+    from ccst_tpu_torch.benchmarks import wino_ablation as ab
+
+    source = open(os.path.join(REPO, "ccst_tpu_torch", "csrc", "winograd_s8.cu")).read()
+    assert ab.variant_source(source, "kernel") == source
+    cut = ab.variant_source(source, name)
+    removed = sum(source.count(c) * (len(c) - 1) for c in ab.VARIANTS[name])  # each left as ";"
+    assert len(source) - len(cut) == removed > 0
+    with pytest.raises(ValueError, match="no longer holds"):
+        ab.variant_source(cut, name)
