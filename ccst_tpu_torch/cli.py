@@ -1,19 +1,24 @@
 """ccst-tpu-torch — the CLI of the PyTorch / CUDA port.
 
 The ``style-bank``, ``calibrate`` and ``stylize`` subcommands of ``ccst-tpu``,
-over the same ``StylizeConfig`` flags, plus ``--device`` (default ``cuda``):
+over the same ``StylizeConfig`` flags, and its list subcommands
+``reorganize``, ``gen-lists``, ``filter-blank`` and ``split-data`` with its
+flags and defaults; every subcommand also takes ``--device`` (default
+``cuda``; the list subcommands touch no device and ignore it):
 
   ccst-tpu-torch style-bank --dataset pacs --list-root $DATA --data-root $DATA ...
   ccst-tpu-torch calibrate  --dataset pacs --target photo --engine int8-fused ...
-  ccst-tpu-torch stylize    --dataset pacs --target photo --mode overall \
-                            --engine int8-fused ...
+  ccst-tpu-torch stylize    --dataset pacs --target photo --mode overall|single \
+                            --engine ref|packed|int8|int8-static|int8-fused \
+                            [--skip-existing] [--output-size 96] ...
+  ccst-tpu-torch reorganize --dataset pacs --target photo --list-root $DATA ...
+  ccst-tpu-torch gen-lists  --dataset pacs --target photo --k 3 --list-root $DATA
 
 ``calibrate`` writes the int8 scales file that ``stylize`` of either package
 picks up (``--scales PATH``, or the default path next to the style banks).
 
 Weights are ``.pth`` (reference checkpoints) or the native ``.npz`` that
-``ccst-tpu`` also reads. The ported subset is listed in
-``ccst_tpu_torch/pipeline/stylize.py``.
+``ccst-tpu`` also reads.
 """
 from __future__ import annotations
 
@@ -154,6 +159,57 @@ def cmd_stylize(args) -> int:
     return 0
 
 
+def cmd_reorganize(args) -> int:
+    from ccst_tpu_torch.data.lists import reorganize_unified_tree
+
+    n = reorganize_unified_tree(
+        args.list_root, args.dataset, args.target, args.mode,
+        style_family=args.style, link=not args.copy,
+        data_root=args.data_root, save_ext=args.save_ext,
+    )
+    print(f"placed {n} files in the unified tree for target={args.target}")
+    return 0
+
+
+def cmd_gen_lists(args) -> int:
+    from ccst_tpu_torch.config import FusionConfig
+    from ccst_tpu_torch.data.lists import generate_k_lists
+
+    cfg = _dataclass_from_args(FusionConfig, args)
+    written = generate_k_lists(
+        args.list_root, cfg.dataset, cfg.target, cfg.k,
+        mode=cfg.mode, style_family=cfg.style, seed=cfg.seed, save_ext=cfg.save_ext,
+    )
+    for client, path in written.items():
+        print(f"{client}: {path}")
+    return 0
+
+
+def cmd_filter_blank(args) -> int:
+    from ccst_tpu_torch.data.lists import filter_blank_images
+
+    written = filter_blank_images(
+        args.list_root, args.dataset, data_root=args.data_root,
+        brightness_lo=args.brightness_lo, brightness_hi=args.brightness_hi,
+        min_std=args.min_std,
+    )
+    for domain, path in written.items():
+        print(f"{domain}: {path}")
+    return 0
+
+
+def cmd_split_data(args) -> int:
+    from ccst_tpu_torch.data.lists import split_image_tree
+
+    written = split_image_tree(
+        args.data_root, args.dataset, args.list_root or args.data_root,
+        train_fraction=args.train_fraction, seed=args.seed, tree_subdir=args.tree_subdir,
+    )
+    for domain, (tr, te) in written.items():
+        print(f"{domain}: {tr} | {te}")
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     from ccst_tpu_torch.config import StylizeConfig
 
@@ -174,9 +230,50 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--max-images", type=int, default=8)
     p.set_defaults(fn=cmd_calibrate)
 
+    p = sub.add_parser("reorganize", help="materialize the unified training tree")
+    for name, default in (
+        ("--dataset", "pacs"), ("--target", ""), ("--mode", "overall"),
+        ("--style", "adain"), ("--list-root", ""), ("--data-root", ""),
+        ("--save-ext", ""),
+    ):
+        p.add_argument(name, default=default)
+    p.add_argument("--copy", action="store_true", help="copy instead of hardlink")
+    p.set_defaults(fn=cmd_reorganize)
+
+    p = sub.add_parser("gen-lists", help="generate K-sampled fusion lists")
+    for name, default in (
+        ("--dataset", "pacs"), ("--target", ""), ("--mode", "overall"),
+        ("--style", "adain"), ("--list-root", ""),
+    ):
+        p.add_argument(name, default=default)
+    p.add_argument("--k", type=int, default=3)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--save-ext", default="",
+                   help="match the stylize stage's --save-ext, if any")
+    p.set_defaults(fn=cmd_gen_lists)
+
+    p = sub.add_parser("filter-blank", help="write _discardBlackWhite lists")
+    p.add_argument("--dataset", default="camelyon17")
+    p.add_argument("--list-root", default="")
+    p.add_argument("--data-root", default="")
+    p.add_argument("--brightness-lo", type=float, default=0.05)
+    p.add_argument("--brightness-hi", type=float, default=0.95)
+    p.add_argument("--min-std", type=float, default=0.02)
+    p.set_defaults(fn=cmd_filter_blank)
+
+    p = sub.add_parser("split-data", help="split an image tree into train/test lists")
+    p.add_argument("--dataset", default="officehome")
+    p.add_argument("--data-root", default="")
+    p.add_argument("--list-root", default="")
+    p.add_argument("--train-fraction", type=float, default=0.8)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--tree-subdir", default="")
+    p.set_defaults(fn=cmd_split_data)
+
     for p in sub.choices.values():
         p.add_argument("--device", default="cuda",
-                       help="torch device (default cuda; cpu runs the plain versions)")
+                       help="torch device (default cuda; cpu runs the plain versions; "
+                            "the list subcommands ignore it)")
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -4,7 +4,10 @@
 // Replaces ccst_tpu/models/vgg_fast.py::_qconv_s (kernel K0), which XLA emitted
 // on the TPU (jnp.pad + conv_general_dilated with int32 accumulation + a fused
 // elementwise epilogue): every conv of the int8-static / int8-fused engines
-// but the level-1 pair that level1_s8.cu fuses. Per output channel c:
+// but the level-1 pair that level1_s8.cu fuses, and every conv of the dynamic
+// int8 engine (vgg_fast.py::_qconv_apply: dequant at every layer, its k the
+// product w_scale * a_scale formed on the device before the launch). Per
+// output channel c:
 //   y = float(acc) * k[c] + kb[c]            (two roundings, no FMA)
 //   requant: rint (half to even), clip to [0 if relu else -127, 127] -> int8
 //   dequant: optional ReLU -> bf16 (round to nearest even) or float32
@@ -40,9 +43,12 @@ namespace {
 using namespace ccst_s8;
 using namespace ccst_igemm;
 
-// OUT: 0 -> int8 (requant), 1 -> bf16, 2 -> float32 (dequant).
+// OUT: 0 -> int8 (requant), 1 -> bf16, 2 -> float32 (dequant). The float32
+// output (the engines' --dtype float32 mode only) is compiled for one block an
+// SM: its scalar store epilogue at BN = 128 spilled at two blocks' 128
+// registers, and a spilled wgmma accumulator is a race.
 template <int BN, int TPS, int OUT>
-__global__ void __launch_bounds__(ccst_igemm::THREADS, min_blocks(BN))
+__global__ void __launch_bounds__(ccst_igemm::THREADS, OUT == 2 ? 1 : min_blocks(BN))
 qconv3x3_s8_wgmma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ wp,
                          const float* __restrict__ kmul, const float* __restrict__ kadd,
                          void* __restrict__ yv, int relu, const ConvGeom g) {

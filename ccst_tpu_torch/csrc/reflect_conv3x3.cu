@@ -3,7 +3,11 @@
 // Replaces ccst_tpu/kernels/conv_pallas.py::reflect_conv3x3_fused (_kernel): the
 // torch ReflectionPad2d(1) halo is never materialized, the 3x3 conv is a GEMM
 // with f32 accumulation, and bias + ReLU run in f32 before the one bf16 rounding
-// (the rounding point of ccst_tpu/models/vgg.py::conv2d).
+// (the rounding point of ccst_tpu/models/vgg.py::conv2d). Every route also
+// takes edge padding (the padded index clamped instead of mirrored): the packed
+// engine's level-1 convs on the space-to-depth plane, where edge padding of the
+// packed plane is reflect padding of the image (ccst_tpu/models/vgg_fast.py::
+// packed_reflect_conv).
 //
 // What bounds it on the H100: the VGG convs at 512 px are tensor-core bound
 // (K = 9*Cin is 576..4608, so every input byte feeds hundreds of MACs), except
@@ -107,7 +111,8 @@ __global__ void __launch_bounds__(GTHREADS)
 reflect_conv3x3_gather_kernel(const __nv_bfloat16* __restrict__ x,
                               const __nv_bfloat16* __restrict__ wk,
                               const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                              int N, int H, int W, int Cin, int Cout, int Kp, int Np, int relu) {
+                              int N, int H, int W, int Cin, int Cout, int Kp, int Np, int relu,
+                              int reflect) {
   __shared__ __align__(128) Smem sm;
 
   const int tid = threadIdx.x;
@@ -144,8 +149,8 @@ reflect_conv3x3_gather_kernel(const __nv_bfloat16* __restrict__ x,
     for (int e = 0; e < BK / 2; ++e) {
       __nv_bfloat16 v = __float2bfloat16(0.0f);
       if (a_ok && tap < 9) {  // tap 9 is the zero padding of K
-        const int hh = pad_index(a_h + tap / 3 - 1, H, 1);
-        const int ww = pad_index(a_w + tap % 3 - 1, W, 1);
+        const int hh = pad_index(a_h + tap / 3 - 1, H, reflect);
+        const int ww = pad_index(a_w + tap % 3 - 1, W, reflect);
         v = x[(a_img + (long long)hh * W + ww) * Cin + ci];
       }
       sm.ab.a[a_row][a_kk + e] = v;
@@ -218,7 +223,7 @@ constexpr int FPAD = 4;        // floats of padding per shared row (keeps 16-byt
 __global__ void __launch_bounds__(FTHREADS)
 reflect_conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
                            const float* __restrict__ bias, float* __restrict__ y, int N, int H,
-                           int W, int Cin, int Cout, int Kp, int Np, int relu) {
+                           int W, int Cin, int Cout, int Kp, int Np, int relu, int reflect) {
   __shared__ __align__(16) float sa[FBK][FBM + FPAD];  // k-major: a thread reads 8 pixels of one k
   __shared__ __align__(16) float sb[FBK][FBN];
 
@@ -256,8 +261,8 @@ reflect_conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict_
     for (int e = 0; e < FBK / 2; ++e) {
       float v = 0.0f;
       if (a_ok && tap < 9) {  // tap 9 is the zero padding of K
-        const int hh = pad_index(a_h + tap / 3 - 1, H, 1);
-        const int ww = pad_index(a_w + tap % 3 - 1, W, 1);
+        const int hh = pad_index(a_h + tap / 3 - 1, H, reflect);
+        const int ww = pad_index(a_w + tap % 3 - 1, W, reflect);
         v = x[(a_img + (long long)hh * W + ww) * Cin + ci];
       }
       sa[a_kk + e][a_row] = v;
@@ -329,6 +334,7 @@ template <int BN> struct Tile {
 struct Geom {
   int N, H, W, Cin, Cout;
   int nchunks, tiles_x, tiles_y, ntiles_n;
+  int reflect;  // 1: reflect padding, 0: edge padding
 };
 
 template <int BN>
@@ -364,7 +370,8 @@ reflect_conv3x3_f32_stage_kernel(const float* __restrict__ x, const float* __res
     for (int it = tid; it < (T::TH + 2) * (T::TW + 2) * T::PIECES; it += THREADS) {
       const int p = it / T::PIECES, piece = it - p * T::PIECES;
       const int hy = p / (T::TW + 2), hxx = p - hy * (T::TW + 2);
-      const int gy = pad_index(y0 - 1 + hy, g.H, 1), gx = pad_index(x0 - 1 + hxx, g.W, 1);
+      const int gy = pad_index(y0 - 1 + hy, g.H, g.reflect);
+      const int gx = pad_index(x0 - 1 + hxx, g.W, g.reflect);
       const int ci = c * T::CK + 4 * piece;
       const bool in = ci < g.Cin;
       const float* src = in ? x + (static_cast<size_t>(n * g.H + gy) * g.W + gx) * g.Cin + ci : x;
@@ -463,10 +470,10 @@ reflect_conv3x3_f32_stage_kernel(const float* __restrict__ x, const float* __res
 
 template <int BN>
 cudaError_t launch_stage(const void* x, const void* wp, const void* bias, void* y, int N, int H,
-                         int W, int Cin, int Cout, int relu, cudaStream_t st) {
+                         int W, int Cin, int Cout, int relu, int reflect, cudaStream_t st) {
   using T = Tile<BN>;
   Geom g{N, H, W, Cin, Cout, (Cin + T::CK - 1) / T::CK, (W + T::TW - 1) / T::TW,
-         (H + T::TH - 1) / T::TH, (Cout + BN - 1) / BN};
+         (H + T::TH - 1) / T::TH, (Cout + BN - 1) / BN, reflect};
   auto kernel = reflect_conv3x3_f32_stage_kernel<BN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(T::SMEM));
@@ -482,8 +489,8 @@ cudaError_t launch_stage(const void* x, const void* wp, const void* bias, void* 
 
 template <int BN, int TPS>
 cudaError_t launch_wgmma(const void* x, const void* wp, const void* bias, void* y, int N, int H,
-                         int W, int Cin, int Cout, int relu, cudaStream_t st) {
-  const ConvGeom g = make_geom(N, H, W, Cin * 2, Cout, BN, TPS, 1);
+                         int W, int Cin, int Cout, int relu, int reflect, cudaStream_t st) {
+  const ConvGeom g = make_geom(N, H, W, Cin * 2, Cout, BN, TPS, reflect);
   return launch(reflect_conv3x3_wgmma_kernel<BN, TPS>, g, smem_bytes(g, BN, TPS), st,
                 static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wp),
                 static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), relu);
@@ -496,21 +503,22 @@ cudaError_t launch_wgmma(const void* x, const void* wp, const void* bias, void* 
 // kernels/conv.py::pack_weight: for Cin % 8 == 0 the stage tiles
 // [n tile][chunk][tap][8][BN][8 bf16] with BN = 8 (Cout <= 8), 64 (<= 64) or
 // 128; otherwise the (roundup(9*Cin, 32), roundup(Cout, 64)) matrix of the
-// gather kernel. Launches on `stream` and returns the first CUDA error (0 on
-// success).
+// gather kernel. reflect: 1 reflect padding (every VGG layer), 0 edge padding
+// (the packed engine's level-1 convs). Launches on `stream` and returns the
+// first CUDA error (0 on success).
 extern "C" int ccst_reflect_conv3x3_bf16(const void* x, const void* wp, const void* bias,
                                          void* y, int N, int H, int W, int Cin, int Cout,
-                                         int relu, void* stream) {
+                                         int relu, int reflect, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Cin % 8 == 0) {
     const int bn = pick_bn(Cout, 8);
     cudaError_t err;
     if (bn == 8)
-      err = launch_wgmma<8, 9>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+      err = launch_wgmma<8, 9>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
     else if (bn == 64)
-      err = launch_wgmma<64, 1>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+      err = launch_wgmma<64, 1>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
     else
-      err = launch_wgmma<128, 1>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+      err = launch_wgmma<128, 1>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
     return static_cast<int>(err);
   }
   const long long M = (long long)N * H * W;
@@ -519,7 +527,7 @@ extern "C" int ccst_reflect_conv3x3_bf16(const void* x, const void* wp, const vo
   reflect_conv3x3_gather_kernel<<<grid, GTHREADS, 0, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wp),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), N, H, W, Cin, Cout, Kp,
-      Np, relu);
+      Np, relu, reflect);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -531,18 +539,18 @@ extern "C" int ccst_reflect_conv3x3_bf16(const void* x, const void* wp, const vo
 // contract otherwise.
 extern "C" int ccst_reflect_conv3x3_f32(const void* x, const void* wp, const void* bias, void* y,
                                         int N, int H, int W, int Cin, int Cout, int relu,
-                                        void* stream) {
+                                        int reflect, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Cin % 4 == 0) {
     cudaError_t err;
     if (Cout <= 4)
-      err = f32::launch_stage<4>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+      err = f32::launch_stage<4>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
     else if (Cout <= 8)
-      err = f32::launch_stage<8>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+      err = f32::launch_stage<8>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
     else if (Cout <= 64)
-      err = f32::launch_stage<64>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+      err = f32::launch_stage<64>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
     else
-      err = f32::launch_stage<128>(x, wp, bias, y, N, H, W, Cin, Cout, relu, st);
+      err = f32::launch_stage<128>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
     return static_cast<int>(err);
   }
   const long long M = (long long)N * H * W;
@@ -550,6 +558,6 @@ extern "C" int ccst_reflect_conv3x3_f32(const void* x, const void* wp, const voi
   dim3 grid((unsigned)((M + FBM - 1) / FBM), (unsigned)(Np / FBN));
   reflect_conv3x3_f32_kernel<<<grid, FTHREADS, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(wp), static_cast<const float*>(bias),
-      static_cast<float*>(y), N, H, W, Cin, Cout, Kp, Np, relu);
+      static_cast<float*>(y), N, H, W, Cin, Cout, Kp, Np, relu, reflect);
   return static_cast<int>(cudaGetLastError());
 }

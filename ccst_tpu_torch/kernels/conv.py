@@ -1,7 +1,10 @@
 """Reflect-pad 3x3 conv + bias + ReLU: CUDA kernel wrapper and plain version.
 
 Replaces ``ccst_tpu/kernels/conv_pallas.py::reflect_conv3x3_fused`` (K3), the
-conv of every 3x3 layer in the VGG encoder and decoder. The kernel is
+conv of every 3x3 layer in the VGG encoder and decoder. With
+``pad_mode="edge"`` it is also the conv of the packed engine's level-1 stage
+(``ccst_tpu/models/vgg_fast.py::packed_reflect_conv``), where edge padding of
+the space-to-depth plane is reflect padding of the image. The kernel is
 ``csrc/reflect_conv3x3.cu`` (an implicit GEMM on ``wgmma``, built by
 ``kernels/_build.py``); its header says what bounds it on the H100 and how the
 design answers that. float32 tensors (the engines' verification mode) take the
@@ -113,9 +116,10 @@ def unpack_f32_stages(packed: torch.Tensor, cin: int, cout: int) -> torch.Tensor
     return w[:, :cin, :cout].reshape(3, 3, cin, cout).contiguous()
 
 
-def simulate_f32_conv(x: np.ndarray, packed: np.ndarray, cout: int) -> np.ndarray:
+def simulate_f32_conv(x: np.ndarray, packed: np.ndarray, cout: int,
+                      reflect: bool = True) -> np.ndarray:
     """The sums the float32 stage kernel forms, (N, H, W, cout), without bias:
-    per block its reflected halo chunk by chunk in the pixel-major plane of
+    per block its reflected (or edge-padded) halo chunk by chunk in the pixel-major plane of
     pitch ``rp``, each thread's 8 pixels of one tile row and its channels
     ``4 cg + h bn / 2 + j``, each tap as an offset ``dy * rp + dx * ck`` into
     the plane, the weights read from the chunk's stage, and the sums taken
@@ -134,8 +138,8 @@ def simulate_f32_conv(x: np.ndarray, packed: np.ndarray, cout: int) -> np.ndarra
     for n in range(n_img):
         for y0 in range(0, h, t.th):
             for x0 in range(0, w, t.tw):
-                gy = pad_index(y0 - 1 + np.arange(t.th + 2), h, True)
-                gx = pad_index(x0 - 1 + np.arange(t.tw + 2), w, True)
+                gy = pad_index(y0 - 1 + np.arange(t.th + 2), h, reflect)
+                gx = pad_index(x0 - 1 + np.arange(t.tw + 2), w, reflect)
                 patch = x[n][gy][:, gx]                     # (th + 2, tw + 2, cin)
                 for nt in range(tiles):
                     acc = np.zeros((F32_THREADS, F32_PX, t.halves, 4), x.dtype)
@@ -194,13 +198,18 @@ def prepare_conv(w_hwio, b, dtype: torch.dtype, device) -> ConvWeights:
     return ConvWeights(w=w, b=b, packed=packed)
 
 
+_TORCH_PAD = {"reflect": "reflect", "edge": "replicate"}
+
+
 def reflect_conv3x3_reference(
-    x: torch.Tensor, w_hwio: torch.Tensor, b: torch.Tensor, relu: bool = True
+    x: torch.Tensor, w_hwio: torch.Tensor, b: torch.Tensor, relu: bool = True,
+    pad_mode: str = "reflect",
 ) -> torch.Tensor:
-    """Plain version: torch ReflectionPad2d(1) + 3x3 conv on the operands
-    upcast to float32, + float32 bias, optional ReLU, one rounding to x.dtype."""
+    """Plain version: torch ReflectionPad2d(1) (``pad_mode="edge"``:
+    ReplicationPad2d(1)) + 3x3 conv on the operands upcast to float32, +
+    float32 bias, optional ReLU, one rounding to x.dtype."""
     xf = x.float().permute(0, 3, 1, 2)
-    xf = F.pad(xf, (1, 1, 1, 1), mode="reflect")
+    xf = F.pad(xf, (1, 1, 1, 1), mode=_TORCH_PAD[pad_mode])
     wf = w_hwio.float().permute(3, 2, 0, 1)  # HWIO -> OIHW
     out = F.conv2d(xf, wf) + b.float().view(1, -1, 1, 1)
     if relu:
@@ -208,17 +217,22 @@ def reflect_conv3x3_reference(
     return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
-def reflect_conv3x3(x: torch.Tensor, cw: ConvWeights, relu: bool = True) -> torch.Tensor:
+def reflect_conv3x3(
+    x: torch.Tensor, cw: ConvWeights, relu: bool = True, pad_mode: str = "reflect"
+) -> torch.Tensor:
     """(N, H, W, Cin) -> (N, H, W, Cout) in x.dtype; the CUDA kernel on a CUDA
     tensor (bf16 on the tensor cores, float32 exact; weights prepared in the
-    same dtype), the plain version on a CPU tensor."""
+    same dtype), the plain version on a CPU tensor. ``pad_mode``:
+    ``"reflect"`` or ``"edge"``."""
+    if pad_mode not in _TORCH_PAD:
+        raise ValueError(f"pad_mode must be 'reflect' or 'edge', got {pad_mode!r}")
     if x.device.type == "cpu":
-        return reflect_conv3x3_reference(x, cw.w, cw.b, relu)
+        return reflect_conv3x3_reference(x, cw.w, cw.b, relu, pad_mode)
     n, h, w, cin = x.shape
     kh, kw, wcin, cout = cw.w.shape
     if (kh, kw, wcin) != (3, 3, cin):
         raise ValueError(f"weights {tuple(cw.w.shape)} do not fit input {tuple(x.shape)}")
-    if h < 2 or w < 2:
+    if pad_mode == "reflect" and (h < 2 or w < 2):
         raise ValueError(f"reflection padding needs H, W >= 2, got {h}x{w}")
     if x.dtype not in (torch.bfloat16, torch.float32) or cw.packed.dtype != x.dtype:
         raise TypeError("the CUDA conv kernel takes bfloat16 or float32 with weights of the "
@@ -240,7 +254,7 @@ def reflect_conv3x3(x: torch.Tensor, cw: ConvWeights, relu: bool = True) -> torc
                  else lib.ccst_reflect_conv3x3_bf16)
         rc = entry(
             x.data_ptr(), cw.packed.data_ptr(), cw.b.data_ptr(), y.data_ptr(),
-            n, h, w, cin, cout, int(relu), stream,
+            n, h, w, cin, cout, int(relu), int(pad_mode == "reflect"), stream,
         )
     if rc:
         raise RuntimeError(f"reflect_conv3x3 launch failed: CUDA error {rc}")

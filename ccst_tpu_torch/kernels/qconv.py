@@ -9,6 +9,12 @@ accumulation, then per output channel ``y = float(acc) * k + kb`` and either
     int8 (the next layer's input, already on its scale); or
   - dequant: optional ReLU, then the output dtype (bf16 on the engines' path).
 
+The dynamic ``int8`` engine (``vgg_fast.py::_qconv_apply``) dequantizes at
+every layer with ``k = w_scale * a_scale``: its per-tensor activation scale
+``a_scale`` is a 0-d float32 tensor on the device, and ``k`` is that one
+float32 product, formed on the device before the launch, so that no launch
+waits for the host.
+
 The kernel is ``csrc/qconv3x3_s8.cu`` (an implicit GEMM on int8 ``wgmma``,
 built by ``kernels/_build.py``); its header says what bounds it on the H100 and
 how the design answers that. It takes the weights in its own layout, made once
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ccst_tpu_torch.kernels.conv import _TORCH_PAD
 from ccst_tpu_torch.kernels.igemm_layout import pack_stage_tiles, pick_bn
 
 # csrc/qconv3x3_s8.cu: the narrow output-channel tile of its wgmma path, and
@@ -102,8 +109,7 @@ def qconv3x3_s8_reference(
     512 ~ 7.4e7), so it is exact and equals the int32 accumulation. Rounding it
     to float32 rounds the same integer as int32 -> float32 does. The epilogue
     is two separate float32 ops, as XLA runs them."""
-    mode = {"edge": "replicate", "reflect": "reflect"}[pad_mode]
-    xd = F.pad(x.permute(0, 3, 1, 2).double(), (1, 1, 1, 1), mode=mode)
+    xd = F.pad(x.permute(0, 3, 1, 2).double(), (1, 1, 1, 1), mode=_TORCH_PAD[pad_mode])
     acc = F.conv2d(xd, wq.double().permute(3, 2, 0, 1))
     y = acc.permute(0, 2, 3, 1).float()
     y = y * k

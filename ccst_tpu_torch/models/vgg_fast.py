@@ -1,7 +1,8 @@
-"""The int8 engines of the VGG encoder / decoder (``int8-static``, ``int8-fused``).
+"""The fast engines of the VGG encoder / decoder: ``packed``, ``int8``,
+``int8-static`` and ``int8-fused``.
 
-Port of the int8-static half of ``ccst_tpu/models/vgg_fast.py``: the same
-weights, re-mapped onto int8 programs that change how the arithmetic runs:
+Port of ``ccst_tpu/models/vgg_fast.py``: the same weights, re-mapped onto
+programs that change how the arithmetic runs:
 
   - **packed level-1 stage.** The 64-channel convs at image resolution run in
     space-to-depth form, (H, W, C) -> (H/2, W/2, 4C) with phase-major
@@ -9,6 +10,13 @@ weights, re-mapped onto int8 programs that change how the arithmetic runs:
     with a 4x wider kernel (:func:`make_packed_kernel`); pool1 is the max over
     the phases and the last upsample folds into dconv1_2's kernel
     (:func:`sum_input_phases`).
+  - **packed** (bf16, exact to float tolerance): the packed stage through K3
+    in edge mode (``kernels/conv.py``), every other conv as in ``ref``.
+  - **int8** (dynamic scales): every conv quantizes its input per tensor at
+    run time (:func:`_quantize_act`: ``max|x|``, then ``x / s`` rounded), runs
+    K0 (``kernels/qconv.py``) with int32 sums and dequantizes with
+    ``w_scale * a_scale``, a product formed on the device, never read by the
+    host; the packed stage with edge padding, the rest with reflect padding.
   - **static int8.** One float32 calibration pass (:func:`calibrate_scales`)
     records max|input| of every conv. Weights are quantized per output channel
     and activations per tensor with those scales, so every conv's epilogue
@@ -17,12 +25,13 @@ weights, re-mapped onto int8 programs that change how the arithmetic runs:
     activations stay int8 from after conv0 to relu4_1 and from the AdaIN
     output to the image.
 
-Every 3x3 conv goes through ``kernels/qconv.py`` (K0); ``int8-fused`` runs the
-encoder's level-1 pair through ``kernels/level1.py`` (K1), with the same
-output bits. The weight maths (packing, quantization, scale folding) is numpy,
-formula for formula the JAX package's, so both packages quantize to the same
-bits. The TPU-only pieces are gone: there is no ``interpret`` switch and no
-row-tile rule with a silent fallback to the unfused chain.
+Every int8 3x3 conv goes through K0; ``int8-fused`` runs the encoder's
+level-1 pair through ``kernels/level1.py`` (K1) and the decoder's through K2,
+with the same output bits as ``int8-static``. The weight maths (packing,
+quantization, scale folding) is numpy, formula for formula the JAX package's,
+so both packages quantize to the same bits. The TPU-only pieces are gone:
+there is no ``interpret`` switch and no row-tile rule with a silent fallback
+to the unfused chain.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ccst_tpu_torch.kernels.conv import _tensor, prepare_conv
+from ccst_tpu_torch.kernels.conv import ConvWeights, _tensor, prepare_conv, reflect_conv3x3
 from ccst_tpu_torch.kernels.level1 import (
     decoder_level1,
     encoder_level1,
@@ -43,7 +52,7 @@ from ccst_tpu_torch.kernels.level1 import (
     prepare_decoder_level1,
     prepare_encoder_level1,
 )
-from ccst_tpu_torch.kernels.qconv import make_qconv, qconv3x3_s8
+from ccst_tpu_torch.kernels.qconv import QConvS, make_qconv, qconv3x3_s8
 from ccst_tpu_torch.models import vgg
 from ccst_tpu_torch.ops.adain import adain_from_stats, alpha_blend
 
@@ -121,6 +130,176 @@ def _packed_kernel_for(name: str, w) -> np.ndarray:
     if name == "dconv1_2":
         K = sum_input_phases(K, np.shape(w)[2])
     return K
+
+
+def _dec_mid_layers():
+    """Decoder layers before the packed level-1 stage, without the upsample
+    that folds into dconv1_2."""
+    out = []
+    for layer in vgg.DECODER_ARCH:
+        if isinstance(layer, vgg.Conv) and layer.name in _PACKED_DEC:
+            break
+        out.append(layer)
+    assert isinstance(out[-1], vgg.Upsample)
+    return tuple(out[:-1])
+
+
+_DEC_MID = _dec_mid_layers()
+# the encoder after pool1, which the packed stage takes as its phase max
+_ENC_TAIL = vgg.ENCODER_ARCH[
+    next(i for i, layer in enumerate(vgg.ENCODER_ARCH) if isinstance(layer, vgg.Pool)) + 1:]
+
+
+def _walk(layers: Sequence, x: torch.Tensor, conv) -> torch.Tensor:
+    """``layers`` (a slice of a VGG spec) with every conv as ``conv(x, layer)``,
+    the ceil-mode pools and the nearest 2x upsamples."""
+    for layer in layers:
+        if isinstance(layer, vgg.Conv):
+            x = conv(x, layer)
+        elif isinstance(layer, vgg.Pool):
+            x = vgg.maxpool_ceil(x)
+        elif isinstance(layer, vgg.Upsample):
+            x = vgg.upsample_nearest2x(x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# bf16 packed engine (exact)
+# ---------------------------------------------------------------------------
+
+# The packed conv1_1 takes its 12 input channels padded with zeros to 16: a
+# 16-channel bf16 pixel is 32 bytes, which K3's wgmma route copies 16 bytes at
+# a time, where 12 channels (24 bytes) take its scalar-gather route. The zero
+# channels meet zero weights, so the sums are the same.
+PACKED_CIN = 16
+
+
+def _prepare_packed(params, names: Sequence[str], dtype: torch.dtype,
+                    device) -> Dict[str, ConvWeights]:
+    out = {}
+    for name, p in params.items():
+        w, b = np.asarray(p["w"], np.float32), np.asarray(p["b"], np.float32)
+        if name in names:
+            w, b = _packed_kernel_for(name, w), np.tile(b, 4)
+            if name == "conv1_1":
+                w = np.pad(w, ((0, 0), (0, 0), (0, PACKED_CIN - w.shape[2]), (0, 0)))
+        out[name] = prepare_conv(w, b, dtype, device)
+    return out
+
+
+def prepare_encoder(params, dtype=torch.bfloat16, device="cpu") -> Dict[str, ConvWeights]:
+    """The packed engine's encoder: ``params`` (:func:`cast_params` output for
+    ``dtype``) with conv1_1 / conv1_2 as packed kernels."""
+    return _prepare_packed(params, _PACKED_ENC, dtype, device)
+
+
+def prepare_decoder(params, dtype=torch.bfloat16, device="cpu") -> Dict[str, ConvWeights]:
+    """The packed engine's decoder: dconv1_2 (upsample folded in) and dconv1_1
+    as packed kernels."""
+    return _prepare_packed(params, _PACKED_DEC, dtype, device)
+
+
+def packed_reflect_conv(xp: torch.Tensor, cw: ConvWeights, relu: bool = True) -> torch.Tensor:
+    """Packed-space equivalent of reflect-pad + 3x3 conv + bias (+ ReLU): K3
+    with edge padding on the packed plane."""
+    return reflect_conv3x3(xp, cw, relu, "edge")
+
+
+def apply_encoder_packed(prep: Dict, images: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Images (N, H, W, 3) in [0, 1], H and W even -> relu4_1 features; the
+    ``ref`` encoder with the level-1 stage computed in packed space."""
+    x = vgg.conv1x1(images.to(dtype), prep["conv0"])  # 1x1 RGB rescale, no relu
+    xp = pack_s2d(x)  # (N, H/2, W/2, 12)
+    xp = F.pad(xp, (0, prep["conv1_1"].w.shape[2] - xp.shape[3]))
+    xp = packed_reflect_conv(xp, prep["conv1_1"])
+    xp = packed_reflect_conv(xp, prep["conv1_2"])
+    return _walk(_ENC_TAIL, phase_max(xp, 64),
+                 lambda t, layer: reflect_conv3x3(t, prep[layer.name], layer.relu))
+
+
+def apply_decoder_packed(prep: Dict, feat: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """relu4_1 features -> image; the ``ref`` decoder with the last upsample,
+    dconv1_2 and dconv1_1 computed in packed space."""
+    x = _walk(_DEC_MID, feat.to(dtype),
+              lambda t, layer: reflect_conv3x3(t, prep[layer.name], layer.relu))
+    xp = packed_reflect_conv(x, prep["dconv1_2"])  # the upsample is in its kernel
+    xp = packed_reflect_conv(xp, prep["dconv1_1"], relu=False)
+    return unpack_d2s(xp, 3)
+
+
+# ---------------------------------------------------------------------------
+# int8 engine (dynamic per-tensor activation scales)
+# ---------------------------------------------------------------------------
+
+
+def _quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor dynamic int8 (``ccst_tpu`` ``vgg_fast._quantize_act``): ``s =
+    max|x| / 127 + 1e-30`` in float32, then ``x / s`` rounded half to even and
+    clipped to [-127, 127]. Both divisions are true divisions, as XLA's: the
+    127 is a tensor on x's device, since PyTorch on the card turns a division
+    by a Python number into a product with its reciprocal. ``s`` stays a 0-d
+    tensor on x's device: nothing is read back to the host."""
+    xf = x.float()
+    amax = xf.abs().amax()
+    s = amax / torch.full_like(amax, 127.0) + 1e-30
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _qconv_apply(x: torch.Tensor, q: QConvS, relu: bool, out_dtype: torch.dtype,
+                 pad_mode: str) -> torch.Tensor:
+    """One conv of the dynamic engine: quantize the input, then K0 with int32
+    sums and the dequant ``acc * (w_scale * a_scale) + bias`` (optional ReLU)
+    into ``out_dtype``. The multiplier is one float32 product on the device,
+    rounded once as XLA rounds it; K0 takes it as its per-channel ``k``."""
+    xq, a_scale = _quantize_act(x)
+    return qconv3x3_s8(xq, q._replace(k=q.k * a_scale), relu, out_dtype, pad_mode)
+
+
+def _prepare_q8(params, packed_names: Sequence[str], dtype: torch.dtype, device) -> Dict[str, Any]:
+    """``ccst_tpu``'s ``QConv`` as a dequantizing :class:`QConvS`: ``k`` the
+    per-output-channel weight scale (packed layers: per packed channel), ``kb``
+    the bias (tiled over the phases where packed)."""
+    prep: Dict[str, Any] = {}
+    for name, p in params.items():
+        if name == "conv0":
+            prep[name] = prepare_conv(p["w"], p["b"], dtype, device)  # 1x1, in dtype
+            continue
+        packed = name in packed_names
+        wq, ws = _quantize_kernel(
+            _packed_kernel_for(name, p["w"]) if packed else np.asarray(p["w"], np.float32)
+        )
+        b = np.asarray(p["b"], np.float32)
+        prep[name] = make_qconv(wq, ws, np.tile(b, 4) if packed else b, packed, False, device)
+    return prep
+
+
+def prepare_encoder_q8(params, dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
+    """``params``: :func:`cast_params` output for ``dtype``."""
+    return _prepare_q8(params, _PACKED_ENC, dtype, device)
+
+
+def prepare_decoder_q8(params, dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
+    """``params``: :func:`cast_params` output for ``dtype``."""
+    return _prepare_q8(params, _PACKED_DEC, dtype, device)
+
+
+def apply_encoder_q8(prep: Dict, images: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dynamic int8 encoder: images (N, H, W, 3) in [0, 1], H and W even ->
+    relu4_1 features in ``dtype``; every conv's output in ``dtype``."""
+    x = vgg.conv1x1(images.to(dtype), prep["conv0"])
+    xp = _qconv_apply(pack_s2d(x), prep["conv1_1"], True, dtype, "edge")
+    xp = _qconv_apply(xp, prep["conv1_2"], True, dtype, "edge")
+    return _walk(_ENC_TAIL, phase_max(xp, 64), lambda t, layer: _qconv_apply(
+        t, prep[layer.name], layer.relu, dtype, "reflect"))
+
+
+def apply_decoder_q8(prep: Dict, feat: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dynamic int8 decoder: AdaIN features -> image in ``dtype``."""
+    x = _walk(_DEC_MID, feat.to(dtype), lambda t, layer: _qconv_apply(
+        t, prep[layer.name], layer.relu, dtype, "reflect"))
+    xp = _qconv_apply(x, prep["dconv1_2"], True, dtype, "edge")  # upsample folded in
+    xp = _qconv_apply(xp, prep["dconv1_1"], False, dtype, "edge")
+    return unpack_d2s(xp, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -225,41 +404,15 @@ def _encode(prep: Dict, images: torch.Tensor, dtype: torch.dtype, fused: bool) -
         xq = qconv3x3_s8(xq, prep["conv1_1"], True, dtype, "edge")
         xq = qconv3x3_s8(xq, prep["conv1_2"], True, dtype, "edge")
         xq = phase_max(xq, 64)  # int8 max == max on the shared scale
-    pools_seen = 0
-    for layer in vgg.ENCODER_ARCH:
-        if isinstance(layer, vgg.Conv) and layer.name not in ("conv0", *_PACKED_ENC):
-            xq = qconv3x3_s8(xq, prep[layer.name], layer.relu, dtype, "reflect")
-            if layer.name == "conv4_1":
-                return xq  # dequantized relu4_1 features in dtype
-        elif isinstance(layer, vgg.Pool):
-            pools_seen += 1
-            if pools_seen > 1:  # pool1 was the phase max
-                xq = vgg.maxpool_ceil(xq)
-    return xq
-
-
-def _dec_mid_layers():
-    """Decoder layers before the packed level-1 stage, without the upsample
-    that folds into dconv1_2."""
-    out = []
-    for layer in vgg.DECODER_ARCH:
-        if isinstance(layer, vgg.Conv) and layer.name in _PACKED_DEC:
-            break
-        out.append(layer)
-    assert isinstance(out[-1], vgg.Upsample)
-    return tuple(out[:-1])
-
-
-_DEC_MID = _dec_mid_layers()
+    # conv4_1 dequantizes: relu4_1 features in dtype
+    return _walk(_ENC_TAIL, xq, lambda t, layer: qconv3x3_s8(
+        t, prep[layer.name], layer.relu, dtype, "reflect"))
 
 
 def _decode(prep: Dict, feat: torch.Tensor, dtype: torch.dtype, fused: bool) -> torch.Tensor:
     xq = quantize_static(feat, prep["__scales__"]["dconv4_1"] / 127.0)
-    for layer in _DEC_MID:
-        if isinstance(layer, vgg.Conv):
-            xq = qconv3x3_s8(xq, prep[layer.name], layer.relu, dtype, "reflect")
-        elif isinstance(layer, vgg.Upsample):
-            xq = vgg.upsample_nearest2x(xq)
+    xq = _walk(_DEC_MID, xq, lambda t, layer: qconv3x3_s8(
+        t, prep[layer.name], layer.relu, dtype, "reflect"))
     if fused:
         y = decoder_level1(xq, prep["dconv1_2"], prep["dconv1_1"], dtype, prep["__level1__"])
     else:

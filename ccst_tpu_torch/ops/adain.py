@@ -49,3 +49,40 @@ def alpha_blend(stylized: torch.Tensor, content: torch.Tensor, alpha) -> torch.T
     """``alpha * stylized + (1 - alpha) * content`` in the dtype of ``stylized``."""
     a = torch.as_tensor(alpha, dtype=stylized.dtype, device=stylized.device)
     return stylized * a + content * (1 - a)
+
+
+# ---------------------------------------------------------------------------
+# CORAL color transfer (reference function.py:36-77). HWC layout, C == 3.
+# ---------------------------------------------------------------------------
+
+
+def _flatten_mean_std(feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(H, W, 3) image -> per-channel flattened values (3, H*W), mean and
+    unbiased (``ddof=1``) std, float32."""
+    if feat.ndim != 3 or feat.shape[-1] != 3:
+        raise ValueError(f"expected (H, W, 3) image, got {tuple(feat.shape)}")
+    flat = feat.float().reshape(-1, 3).T
+    return flat, flat.mean(dim=-1, keepdim=True), flat.std(dim=-1, keepdim=True, correction=1)
+
+
+def _mat_sqrt(x: torch.Tensor) -> torch.Tensor:
+    u, d, vt = torch.linalg.svd(x)
+    return (u * torch.sqrt(d)[None, :]) @ vt
+
+
+def coral(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Second-order (covariance) color alignment of ``source`` onto ``target``,
+    both (H, W, 3) images, in float32: channels standardized, whitened by the
+    inverse matrix square root of the source correlation (+ I), re-colored by
+    the target's, rescaled to the target's per-channel moments
+    (function.py:51-77). Returns the dtype of ``source``."""
+    eye = torch.eye(3, dtype=torch.float32, device=source.device)
+    s_flat, s_mean, s_std = _flatten_mean_std(source)
+    s_norm = (s_flat - s_mean) / s_std
+    s_cov_eye = s_norm @ s_norm.T + eye
+    t_flat, t_mean, t_std = _flatten_mean_std(target)
+    t_norm = (t_flat - t_mean) / t_std
+    t_cov_eye = t_norm @ t_norm.T + eye
+    transfer = _mat_sqrt(t_cov_eye) @ (torch.linalg.inv(_mat_sqrt(s_cov_eye)) @ s_norm)
+    out = transfer * t_std + t_mean  # (3, H*W)
+    return out.T.reshape(source.shape).to(source.dtype)

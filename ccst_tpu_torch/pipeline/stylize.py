@@ -1,9 +1,11 @@
-"""Cross-client style transfer (CCST pipeline stage 2), Overall mode.
+"""Cross-client style transfer (CCST pipeline stage 2).
 
 Port of ``ccst_tpu/pipeline/stylize.py`` (reference
-style_transfer/AdaIN/CCST_OverallStyleTransfer.py): for a content domain,
-write a stylized copy of every train image under each other domain's shared
-style bank.
+style_transfer/AdaIN/CCST_OverallStyleTransfer.py and
+CCST_SingleStyleTransfer.py): for a content domain, write a stylized copy of
+every train image under each other domain's style: its shared style bank
+("overall" mode), or the statistics of one random image of that domain drawn
+per content batch ("single" mode, seeded like the reference).
 
   - :class:`StylizeEngine`: weights cast once to the compute dtype on one
     device; encode -> fused AdaIN + alpha blend -> decode, through the kernels
@@ -12,6 +14,10 @@ style bank.
     decodes each. Engines:
       ``ref``          bf16 reference executor (float32: the exact parity
                        mode for verification), conv kernel K3;
+      ``packed``       ``ref`` with the level-1 stage in space-to-depth form
+                       (``models/vgg_fast.py``), K3 with edge padding there;
+      ``int8``         dynamic per-tensor int8 scales at every conv, K0 with
+                       ``w_scale * a_scale`` formed on the device;
       ``int8-static``  int8 end to end with calibrated static scales
                        (``models/vgg_fast.py``), int8 conv kernel K0;
       ``int8-fused``   ``int8-static`` with the level-1 stage of the encoder
@@ -24,25 +30,28 @@ style bank.
     32 (``PERF.md``, the table of kernels): the port decodes through it.
     The int8 engines calibrate on the first batch and style bank they see, or
     take ``scales`` (from ``calibrate``, :func:`run_calibration`).
+  - ``output_size > 0`` resizes the float32 outputs (antialiased bilinear,
+    :func:`resize_bilinear`) before the uint8 quantization.
   - The transfer loop decodes each content batch once (uint8 transport,
     normalized on the device), launches batch N+1 before it copies batch N's
-    uint8 output to the host, and encodes the images on a thread pool.
-
-Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md): the
-``packed`` and dynamic ``int8`` engines, ``--mode single``, ``skip_existing``
-and ``output_size > 0``.
+    uint8 output to the host, and encodes the images on a thread pool. Overall
+    mode without ``skip_existing`` restyles each batch under every bank at
+    once; single mode and ``skip_existing`` run style by style, as
+    ``ccst_tpu`` does, the latter over the outputs that do not exist yet.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import json
 import os
+import random
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ccst_tpu_torch.config import StylizeConfig, dataset_spec
 from ccst_tpu_torch.data.lists import parse_list, stylized_output_path, train_list_path
@@ -52,22 +61,18 @@ from ccst_tpu_torch.kernels.moments import channel_moments
 from ccst_tpu_torch.models import vgg, vgg_fast
 from ccst_tpu_torch.pipeline.style_bank import load_style_stats
 
-# what is not ported yet, and the ROADMAP.md Queue 1 item it waits for
-_WAITS = {
-    "packed": "item 4 (the packed bf16 engine)",
-    "int8": "item 8 (the dynamic-scale int8 engine)",
-    "output_size": "item 4 (resize_bilinear)",
-    "single": "item 6 (single-mode transfer)",
-    "skip_existing": "item 6 (skip_existing reruns)",
-}
 INT8_ENGINES = ("int8-static", "int8-fused")  # calibrated static scales
-ENGINES = ("ref", *INT8_ENGINES)
+ENGINES = ("ref", "packed", "int8", *INT8_ENGINES)
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ccst_tpu_torch yet: ROADMAP.md Queue 1 {_WAITS[what]}"
-    )
+def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
+    """Antialiased bilinear resize of (N, H, W, C) float images to (N, size,
+    size, C): ``ccst_tpu``'s ``jax.image.resize(..., "bilinear",
+    antialias=True)`` (torchvision Resize parity for downscaling, e.g.
+    camelyon17's 512 -> 96, CCST_OverallStyleTransfer.py:154)."""
+    x = F.interpolate(images.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 class StylizeEngine:
@@ -88,14 +93,11 @@ class StylizeEngine:
         scales: Optional[Dict[str, float]] = None,
     ):
         if engine not in ENGINES:
-            if engine not in _WAITS:
-                raise ValueError(f"unknown stylize engine {engine!r}")
-            raise not_ported(engine)
-        if output_size > 0:
-            raise not_ported("output_size")
+            raise ValueError(f"unknown stylize engine {engine!r}")
         self.dtype = dtype
         self.device = torch.device(device)
         self.engine = engine
+        self.output_size = output_size
         self.output_u8 = output_u8
         self.scales = scales
         self._needs_calibration = engine in INT8_ENGINES and scales is None
@@ -105,12 +107,22 @@ class StylizeEngine:
             self._encode = lambda x: vgg.apply_encoder(self.enc, x)
             self._decode = lambda t: vgg.apply_decoder(self.dec, t)
             return
-        # the int8 engines keep only the dtype-rounded weights they quantize
-        # and calibrate; their executors exist once scales do
+        # the other engines keep the dtype-rounded weights they pack, quantize
+        # or calibrate; the static int8 executors exist once scales do
         self.enc = self.dec = None
         self._enc_w = vgg_fast.cast_params(encoder_params, dtype)
         self._dec_w = vgg_fast.cast_params(decoder_params, dtype)
-        if scales is not None:
+        if engine == "packed":
+            ep = vgg_fast.prepare_encoder(self._enc_w, dtype, self.device)
+            dp = vgg_fast.prepare_decoder(self._dec_w, dtype, self.device)
+            self._encode = lambda x: vgg_fast.apply_encoder_packed(ep, x, dtype)
+            self._decode = lambda t: vgg_fast.apply_decoder_packed(dp, t, dtype)
+        elif engine == "int8":
+            ep = vgg_fast.prepare_encoder_q8(self._enc_w, dtype, self.device)
+            dp = vgg_fast.prepare_decoder_q8(self._dec_w, dtype, self.device)
+            self._encode = lambda x: vgg_fast.apply_encoder_q8(ep, x, dtype)
+            self._decode = lambda t: vgg_fast.apply_decoder_q8(dp, t, dtype)
+        elif scales is not None:
             self._build_int8(scales)
 
     def _build_int8(self, scales) -> None:
@@ -152,6 +164,8 @@ class StylizeEngine:
 
     def _finish(self, out: torch.Tensor) -> torch.Tensor:
         out = out.float()
+        if self.output_size > 0:
+            out = resize_bilinear(out, self.output_size)
         if self.output_u8:
             # save_image quantization on the device: clamp, x255, +0.5, truncate
             out = torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5
@@ -190,7 +204,7 @@ class StylizeEngine:
         the population (``ddof=0``) variance of the reference's single-style
         statistics (CCST_SingleStyleTransfer.py:201-204). Every engine takes
         them through the ``ref`` encoder, as ``ccst_tpu``'s engine does."""
-        if self.enc is None:  # int8 engines prepare it on first use
+        if self.enc is None:  # the other engines prepare it on first use
             self.enc = vgg.prepare_params(self._enc_w, self.dtype, self.device)
         feat = vgg.apply_encoder(self.enc, self._as_input(image))
         mean, m2, count = channel_moments(feat[:1])
@@ -321,19 +335,39 @@ class _DispatchAhead:
         self.fetch_seconds += time.perf_counter() - t1 - backpressure
 
 
+def _style_lists(cfg: StylizeConfig, styles: Sequence[str]) -> Dict[str, List[str]]:
+    """Single mode: the image paths of each style domain, from the
+    blank-filtered ``{dataset}_discardBlackWhite`` list where it exists (the
+    reference samples camelyon17 styles from those,
+    CCST_SingleStyleTransfer.py:165-166; ``filter-blank`` writes them), else
+    from the train list."""
+    out = {}
+    for style in styles:
+        filtered = train_list_path(cfg.list_root, f"{cfg.dataset.lower()}_discardBlackWhite", style)
+        src = (filtered if os.path.exists(filtered)
+               else train_list_path(cfg.list_root, cfg.dataset, style))
+        names, _ = parse_list(src)
+        out[style] = [os.path.join(cfg.data_root, n) for n in names] if cfg.data_root else names
+    return out
+
+
 def _run_transfer(cfg: StylizeConfig, engine: StylizeEngine, mode: str) -> TransferReport:
-    if mode.lower() == "single":
-        raise not_ported("single")
-    if cfg.skip_existing:
-        raise not_ported("skip_existing")
     spec = dataset_spec(cfg.dataset)
     styles = [d for d in spec.domains if d != cfg.target]
     loader, rel_names = _content_loader(cfg)
+    if mode.lower() == "single" or cfg.skip_existing:
+        report = _run_style_major(cfg, engine, mode, styles, loader, rel_names)
+    else:
+        report = _run_batch_major(cfg, engine, mode, styles, loader, rel_names)
+    _write_timing(cfg, mode, report)
+    return report
 
+
+def _run_batch_major(cfg, engine, mode, styles, loader, rel_names) -> TransferReport:
+    """Overall mode: decode and encode each content batch once, then restyle
+    it under every style bank in one ``stylize_multi``."""
     t0 = time.perf_counter()
     n_done = 0
-    # batch-major: decode and encode each content batch once, then restyle it
-    # under every style bank
     bank = [load_style_stats(bank_path_for(cfg, style)) for style in styles]
     s_means = engine._stats(np.stack([m for m, _ in bank]))
     s_stds = engine._stats(np.stack([s for _, s in bank]))
@@ -378,7 +412,7 @@ def _run_transfer(cfg: StylizeConfig, engine: StylizeEngine, mode: str) -> Trans
             f.result()
         t_drain = time.perf_counter() - t1
     elapsed = time.perf_counter() - t0
-    report = TransferReport(
+    return TransferReport(
         target=cfg.target,
         styles=styles,
         images=n_done // max(len(styles), 1),
@@ -390,8 +424,105 @@ def _run_transfer(cfg: StylizeConfig, engine: StylizeEngine, mode: str) -> Trans
         encode_backpressure_seconds=round(t_bp, 3),
         encode_drain_seconds=round(t_drain, 3),
     )
-    _write_timing(cfg, mode, report)
-    return report
+
+
+def _run_style_major(cfg, engine, mode, styles, loader, rel_names) -> TransferReport:
+    """Style by style (``ccst_tpu/pipeline/stylize.py``'s loop): single mode
+    draws one style image per content batch from one ``random.Random(seed)``,
+    in style then batch order, and takes its relu4_1 statistics on the device;
+    ``skip_existing`` loads only the content images whose output for the
+    style does not exist yet."""
+    single = mode.lower() == "single"
+    rng = random.Random(cfg.seed)
+    style_lists = _style_lists(cfg, styles) if single else {}
+    t0 = time.perf_counter()
+    n_done = 0
+    t_loader = t_first = t_bp = t_fetch = t_drain = t_style = 0.0
+    with cf.ThreadPoolExecutor(8) as pool:
+        for style in styles:
+            if not single:
+                s_mean, s_std = load_style_stats(bank_path_for(cfg, style))
+            style_loader, style_rels = loader, rel_names
+            if cfg.skip_existing:
+                missing = [i for i, rel in enumerate(rel_names)
+                           if not os.path.exists(_out_path_of(cfg, rel, style, mode))]
+                if not missing:
+                    continue
+                style_rels = [rel_names[i] for i in missing]
+                style_loader = ImageBatchLoader(
+                    [loader.paths[i] for i in missing], [loader.labels[i] for i in missing],
+                    batch_size=cfg.batch_size, image_size=cfg.image_size, shuffle=False,
+                    out_dtype="uint8",
+                )
+            offset = 0
+            futs: List[cf.Future] = []
+            pipe = _DispatchAhead()
+            it = iter(style_loader)
+            first = True
+
+            def read_next():
+                """The next content batch and, in single mode, its style
+                image's decode started on the pool: one draw a batch, in batch
+                order, so the choices are those of a loop without prefetch."""
+                t1 = time.perf_counter()
+                b = next(it, None)
+                dt = time.perf_counter() - t1
+                sf = None
+                if b is not None and single:
+                    sf = pool.submit(load_image, rng.choice(style_lists[style]), cfg.image_size)
+                return b, sf, dt
+
+            cur = read_next()
+            while True:
+                batch, style_fut, dt = cur
+                if first:
+                    t_first += dt
+                    first = False
+                else:
+                    t_loader += dt
+                if batch is None:
+                    break
+                # the next batch (and its style decode) before this batch's style image
+                cur = read_next()
+                if single:
+                    t1 = time.perf_counter()
+                    style_img = style_fut.result()
+                    t_style += time.perf_counter() - t1
+                    s_mean, s_std = engine.style_stats_of(torch.from_numpy(style_img)[None])
+                out = engine.stylize(
+                    torch.from_numpy(batch.images), s_mean, s_std, cfg.alpha
+                )[: batch.valid]
+                rel = style_rels[offset : offset + batch.valid]
+                offset += batch.valid
+
+                def emit(out_np, rel=rel, style=style):
+                    nonlocal n_done, t_bp
+                    bp = _writeback(pool, out_np, rel, cfg, style, mode, futs)
+                    t_bp += bp
+                    n_done += len(rel)
+                    return bp  # _DispatchAhead subtracts it from fetch_wait
+
+                pipe.push(out, emit)
+            pipe.drain()
+            t_fetch += pipe.fetch_seconds
+            t1 = time.perf_counter()
+            for f in futs:
+                f.result()
+            t_drain += time.perf_counter() - t1
+    elapsed = time.perf_counter() - t0
+    return TransferReport(
+        target=cfg.target,
+        styles=styles,
+        images=n_done // max(len(styles), 1),
+        seconds=elapsed,
+        images_per_sec=n_done / max(elapsed, 1e-9),
+        loader_wait_seconds=round(t_loader, 3),
+        fetch_wait_seconds=round(t_fetch, 3),
+        first_batch_wait_seconds=round(t_first, 3),
+        encode_backpressure_seconds=round(t_bp, 3),
+        encode_drain_seconds=round(t_drain, 3),
+        style_decode_wait_seconds=round(t_style, 3),
+    )
 
 
 def _write_timing(cfg: StylizeConfig, mode: str, report: TransferReport) -> None:

@@ -39,23 +39,38 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      B3 fused pool1 + conv2_1 (F9, F3) at (128, 256, 256, 256), the unfused
      chain (phase max + K0) timed beside it; then ragged
      shapes (odd planes, Cout = 12, one-row tiles, M and N off the tiles);
+     and the modes of the packed and dynamic int8 engines: K3 with edge
+     padding at the packed level-1 shapes (bf16 and float32, cuDNN on an
+     edge-padded input beside it), K0 dequantizing with k = w_scale * a_scale
+     formed on the device at every shape of the int8 engine (bit for bit);
   4. the main paths through the CLI entry point, in this process, each with
      every launch count zeroed before it and read after it: ``style-bank``
      for four synthetic PACS domains, ``stylize --target photo --mode
      overall`` (bf16 ``ref`` engine), ``calibrate --target photo``,
      ``stylize --engine int8-fused`` at 512 px in bfloat16 with seeded random
      weights, then ``style-bank`` and ``stylize --engine ref`` once more with
-     ``--dtype float32`` (the parity mode); outputs must exist and be finite, and every kernel's launch
-     count must be exactly what the path implies;
+     ``--dtype float32`` (the parity mode); ``stylize --mode single`` with
+     ``ref`` and ``int8-fused``, ``--engine packed`` (bf16 and float32),
+     ``--engine int8``, ``--output-size 96`` (96 px PNGs) and ``ref`` for the
+     other three content domains; a ``--skip-existing`` rerun that launches
+     and writes nothing, and one after an output a style is deleted that
+     rewrites exactly those; outputs must exist, spread and be finite, and
+     every kernel's launch count must be exactly what the path implies; then
+     ``reorganize``, ``gen-lists``, ``filter-blank`` and ``split-data`` on the
+     same tree, each exiting 0 and writing its lists;
   5. on one 512 px batch: the ``ref`` path against the same path composed
      from the plain versions (MAE <= 1e-3), and the same in float32 (MAE <=
      1e-4); ``int8-fused`` against its plain
      composition (MAE <= 1e-3), against ``int8-static`` (bit for bit) and
      against ``ref`` (PSNR > 20 dB); ``apply_decoder_q8s_fused`` (K2) against
      ``apply_decoder_q8s`` (bit for bit) on one AdaIN output, one style's
-     decode timed both ways; device-only ``stylize_multi`` times of the three
-     engines and of the float32 ``ref`` engine, as a loop of calls and as one
-     replayed CUDA graph (the card's own time: the difference is the host's);
+     decode timed both ways; ``packed`` against its plain composition (MAE
+     <= 1e-3; float32 <= 1e-4) and in float32 against the float32 ``ref``
+     (max 5e-5); ``int8`` against its plain composition (MAE <= 1e-3) and
+     against ``ref`` (PSNR > 20 dB); device-only ``stylize_multi`` times of
+     every engine and of the float32 ``ref`` and ``packed`` engines, as a loop
+     of calls and as one replayed CUDA graph (the card's own time: the
+     difference is the host's);
   6. the three int8 A/B harnesses (``ccst_tpu_torch.benchmarks.int8_mm``,
      ``winograd_ab``, ``fused_pool_conv_ab --batch 32``) through their
      ``main()`` in this process, each with every launch count zeroed before it
@@ -107,6 +122,7 @@ F32_MAE_BAR = 1e-4                     # float32 whole path against its plain pa
 MAE_BAR = 1e-3                         # ROADMAP.md / BASELINE stylize bar
 MIN_SPREAD = 0.5                       # the bar above assumes outputs spread over [0, 1]
 PSNR_BAR = 20.0                        # int8 vs bf16 ref, ccst_tpu's tests/test_vgg_fast.py bar
+PACKED_F32_ATOL = 5e-5                 # packed vs ref in float32, ccst_tpu's tests/test_vgg_fast.py bar
 INT8_PEAK_TOPS = 1979.0                # H100 SXM dense int8, NVIDIA data sheet
 BF16_PEAK_TFLOPS = 989.0               # H100 SXM dense bf16, NVIDIA data sheet
 F32_PEAK_TFLOPS = 67.0                 # H100 SXM float32 outside the tensor cores
@@ -178,6 +194,20 @@ K0_SHAPES = [
     ("dconv1_1 packed (dequant)", (4, 256, 256, 256, 12), "edge", False, False),
 ]
 K0_MAIN = (4, 128, 128, 256, 256)
+# K3 with edge padding at the packed engine's level-1 shapes at batch 4, 512 px
+# (the packed plane is 256 x 256): (layer, (N, H, W, Cin, Cout), relu). conv1_1
+# takes its 12 channels padded to 16 (vgg_fast.PACKED_CIN)
+K3_EDGE_SHAPES = [
+    ("conv1_1 packed, Cin padded to 16", (4, 256, 256, 16, 256), True),
+    ("conv1_2 packed", (4, 256, 256, 256, 256), True),
+    ("dconv1_2 packed, upsample folded", (4, 256, 256, 64, 256), True),
+    ("dconv1_1 packed", (4, 256, 256, 256, 12), False),
+]
+# K0 as the dynamic int8 engine launches it at batch 4, 512 px: dequant to
+# bf16 at every layer, k = w_scale * a_scale formed on the device;
+# (layer, (N, H, W, Cin, Cout), pad, relu)
+K0_DYNAMIC_SHAPES = [(layer.split(" (")[0], shape, pad, relu)
+                     for layer, shape, pad, _, relu in K0_SHAPES]
 # ragged K0 shapes, correctness only: odd plane and no ReLU (clip at -127),
 # Cout = 12 on an odd plane, the Cin = 12 gather on one row, the smallest
 # reflectable plane
@@ -279,44 +309,22 @@ def time_ms(torch, fn, reps=10, runs=5):
     return sorted(times)[len(times) // 2]
 
 
-def write_tree(root, images_per_domain):
-    """A PACS-layout tree: ``PACS/kfold/{domain}/dog/img{i}.png`` (blocky
-    seeded noise, 512 px) and ``txt_lists/pacs/{domain}_train.txt`` lines
-    ``<rel> <label>``."""
-    import numpy as np
-    from PIL import Image
-
-    rng = np.random.default_rng(0)
-    for d in DOMAINS:
-        rels = []
-        for i in range(images_per_domain):
-            rel = f"PACS/kfold/{d}/dog/img{i}.png"
-            base = rng.random((SIZE // 16, SIZE // 16, 3), dtype=np.float32)
-            img = np.kron(base, np.ones((16, 16, 1), np.float32))
-            img = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1) * 255 + 0.5
-            os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
-            Image.fromarray(img.astype(np.uint8)).save(os.path.join(root, rel))
-            rels.append(rel)
-        list_path = os.path.join(root, "txt_lists", "pacs", f"{d}_train.txt")
-        os.makedirs(os.path.dirname(list_path), exist_ok=True)
-        with open(list_path, "w") as f:
-            f.writelines(f"{rel} 0\n" for rel in rels)
-
-
 def read_images(paths):
-    """(N, SIZE, SIZE, 3) uint8 from PNGs written at SIZE."""
+    """(N, H, W, 3) uint8 from PNGs of one size."""
     import numpy as np
     from PIL import Image
 
     return np.stack([np.asarray(Image.open(p).convert("RGB"), dtype=np.uint8) for p in paths])
 
 
-def cudnn_bf16_conv(torch, x, cw):
+def cudnn_bf16_conv(torch, x, cw, pad_mode="reflect"):
     """A timing reference only, on no path: cuDNN's conv in x's dtype
-    (channels_last) on an input reflect-padded beforehand, bias in the conv,
-    no ReLU."""
+    (channels_last) on an input reflect- (or edge-) padded beforehand, bias in
+    the conv, no ReLU."""
+    from ccst_tpu_torch.kernels.conv import _TORCH_PAD
+
     F = torch.nn.functional
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=_TORCH_PAD[pad_mode])
     xp = xp.contiguous(memory_format=torch.channels_last)
     w = cw.w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     b = cw.b.to(x.dtype)
@@ -602,6 +610,122 @@ def check_int8_kernels(torch, dev, gen, results):
     print("edge shapes: K0, K1, K2 equal their plain versions")
 
 
+def check_new_modes(torch, dev, gen, results):
+    """Phase 3, the modes the packed and dynamic int8 engines add: K3 with
+    edge padding at the packed level-1 shapes, bf16 (rtol = atol = 1e-2) and
+    float32 (1e-4, TF32 off), each timed beside cuDNN's conv on an input
+    edge-padded beforehand; K0 dequantizing with k = w_scale * a_scale, the
+    product formed on the device as vgg_fast._qconv_apply forms it, at every
+    shape of the int8 engine, bit for bit; each with its bound; then ragged
+    shapes."""
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
+    from ccst_tpu_torch.kernels.conv import prepare_conv, reflect_conv3x3, reflect_conv3x3_reference
+    from ccst_tpu_torch.kernels.qconv import make_qconv, qconv3x3_s8, qconv3x3_s8_reference
+
+    for dtype, tol, peak, reps in ((torch.bfloat16, BF16_TOL, BF16_PEAK_TFLOPS, (10, 5)),
+                                   (torch.float32, K3_F32_TOL, F32_PEAK_TFLOPS, (3, 3))):
+        esize = 2 if dtype == torch.bfloat16 else 4
+        for layer, (n, h, w, cin, cout), relu in K3_EDGE_SHAPES:
+            x = torch.randn((n, h, w, cin), generator=gen).to(dev, dtype)
+            spread = (1.0 / (9 * cin)) ** 0.5
+            wt = (torch.rand((3, 3, cin, cout), generator=gen) * 2 - 1) * spread
+            b = (torch.rand((cout,), generator=gen) * 2 - 1) * spread
+            cw = prepare_conv(wt, b, dtype, dev)
+            kernel = lambda: reflect_conv3x3(x, cw, relu, "edge")
+            plain = lambda: reflect_conv3x3_reference(x, cw.w, cw.b, relu, "edge")
+            got = kernel()
+            torch.cuda.synchronize()
+            mx, mean = check_close(f"K3 edge {dtype} {(n, h, w, cin, cout)}", got, plain(), **tol)
+            ms = time_ms(torch, kernel, *reps)
+            plain_ms = time_ms(torch, plain, reps=2, runs=3)
+            torch.backends.cudnn.benchmark = dtype == torch.bfloat16
+            lib = time_ms(torch, cudnn_bf16_conv(torch, x, cw, "edge"), *reps)
+            torch.backends.cudnn.benchmark = False
+            bd = conv_bound((n, h, w, cin, cout), peak, esize, esize)
+            flop = 2 * n * h * w * 9 * cin * cout
+            cudnn_key = "cudnn_bf16_ms" if dtype == torch.bfloat16 else "cudnn_f32_ms"
+            row = dict(layer=layer, shape=[n, h, w, cin, cout], pad="edge", relu=relu,
+                       dtype=str(dtype), max_abs_err=mx, mean_abs_err=mean, ms=ms,
+                       plain_ms=plain_ms, **{cudnn_key: lib}, **bd)
+            line = (f"K3 conv edge {dtype} {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean "
+                    f"{mean:.3e} | kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) "
+                    f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                    f"({100 * bd['bound_ms'] / ms:.1f}% reached) cuDNN on an edge-padded input "
+                    f"{lib:.4f} ms plain {plain_ms:.4f} ms")
+            if ms < GRAPH_BELOW_MS:
+                row["graph_ms"] = graph_ms(torch, kernel, 20, 5)["median"]
+                line += f"; graph {row['graph_ms']:.4f} ms"
+            results["K3"].append(row)
+            print(line)
+            del x, got
+
+    for layer, (n, h, w, cin, cout), pad, relu in K0_DYNAMIC_SHAPES:
+        x = int8_input(torch, gen, (n, h, w, cin), dev)
+        wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, dtype=torch.int8)
+        w_scale = (torch.rand((cout,), generator=gen) + 0.5) / 127.0
+        q = make_qconv(wq.numpy(), w_scale.numpy(), (torch.randn((cout,), generator=gen)).numpy(),
+                       False, False, dev)
+        # a 0-d float32 scale on the device, as _quantize_act leaves it: with
+        # |acc| ~ 73 * sqrt(9 Cin) * 127 it puts y over about +-10
+        a_scale = torch.tensor(10.0 / (73 * math.sqrt(9 * cin)), device=dev)
+        q = q._replace(k=q.k * a_scale)
+        kernel = lambda: qconv3x3_s8(x, q, relu, torch.bfloat16, pad)
+        plain = lambda: qconv3x3_s8_reference(x, q.wq, q.k, q.kb, relu, False, torch.bfloat16,
+                                              pad)
+        got = kernel()
+        torch.cuda.synchronize()
+        check_equal(torch, f"K0 dynamic {layer} {(n, h, w, cin, cout)}", got, plain())
+        if len(torch.unique(got)) < 20:
+            fail(f"K0 dynamic {layer}: outputs do not spread, the comparison would say little")
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, reps=2, runs=3)
+        tops = 2 * n * h * w * 9 * cin * cout / (ms * 1e-3) / 1e12
+        bd = conv_bound((n, h, w, cin, cout), INT8_PEAK_TOPS, 1, 2)
+        row = dict(layer=layer, shape=[n, h, w, cin, cout], pad=pad, requant=False, relu=relu,
+                   scale="dynamic", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, tops=tops,
+                   peak_share=tops / INT8_PEAK_TOPS, **bd)
+        line = (f"K0 qconv dynamic {layer} {(n, h, w, cin, cout)} {pad} dequant bf16 relu={relu}, "
+                f"k = w_scale * a_scale on the device: bit-exact | kernel {ms:.4f} ms "
+                f"({tops:.1f} TOPS) bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                f"({100 * bd['bound_ms'] / ms:.1f}% reached) plain f64 {plain_ms:.4f} ms")
+        if ms < GRAPH_BELOW_MS:
+            row["graph_ms"] = graph_ms(torch, kernel, 20, 5)["median"]
+            line += f"; graph {row['graph_ms']:.4f} ms"
+        results["K0"].append(row)
+        print(line)
+        del x, got
+
+    # ragged edges, correctness only: K3 edge mode on one row and one column
+    # (no reflect there), an odd plane with Cout = 12 and the Cin = 12 gather, in
+    # both types; K0 with a dynamic k on the Cin = 12 gather route and the
+    # narrow tile, float32 output
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, K3_F32_TOL)):
+        for (n, h, w, cin, cout) in ((1, 1, 19, 16, 64), (2, 9, 1, 64, 12), (3, 17, 9, 256, 12),
+                                     (2, 7, 33, 12, 256)):
+            x = torch.randn((n, h, w, cin), generator=gen).to(dev, dtype)
+            cw = prepare_conv(torch.randn((3, 3, cin, cout), generator=gen) * 0.1,
+                              torch.randn((cout,), generator=gen), dtype, dev)
+            got = reflect_conv3x3(x, cw, True, "edge")
+            torch.cuda.synchronize()
+            check_close(f"K3 edge {dtype} {(n, h, w, cin, cout)}", got,
+                        reflect_conv3x3_reference(x, cw.w, cw.b, True, "edge"), **tol)
+    for (n, h, w, cin, cout), pad in (((2, 7, 9, 12, 256), "edge"), ((3, 17, 9, 256, 12), "edge"),
+                                      ((2, 37, 53, 64, 128), "reflect")):
+        x = int8_input(torch, gen, (n, h, w, cin), dev)
+        q = make_qconv(torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
+                                     dtype=torch.int8).numpy(),
+                       ((torch.rand((cout,), generator=gen) + 0.5) / 127.0).numpy(),
+                       torch.randn((cout,), generator=gen).numpy(), False, False, dev)
+        q = q._replace(k=q.k * torch.tensor(0.003, device=dev))
+        got = qconv3x3_s8(x, q, False, torch.float32, pad)
+        torch.cuda.synchronize()
+        check_equal(torch, f"K0 dynamic edge {(n, h, w, cin, cout)} {pad}", got,
+                    qconv3x3_s8_reference(x, q.wq, q.k, q.kb, False, False, torch.float32, pad))
+    torch.cuda.synchronize()
+    print("edge shapes: K3 edge mode and K0 with a dynamic k agree with their plain versions")
+
+
 def check_ab_kernels(torch, dev, cpu_gen, results):
     """Phase 3, A/B part: B1, B2 (direct, Winograd in its three modes) and B3
     (F9, F3) bit for bit against their plain versions at the harnesses'
@@ -813,6 +937,7 @@ def main() -> int:
         decoder_level1,
         encoder_level1,
         encoder_level1_reference,
+        phase_max,
     )
     from ccst_tpu_torch.kernels.moments import channel_moments
     from ccst_tpu_torch.kernels.qconv import qconv3x3_s8, qconv3x3_s8_reference
@@ -937,12 +1062,14 @@ def main() -> int:
     print("edge shapes: K3 agrees with its plain version")
 
     check_int8_kernels(torch, dev, gen, results)
+    check_new_modes(torch, dev, gen, results)
     check_ab_kernels(torch, dev, gen, results)
 
     # -- 4. the main paths through the CLI ---------------------------------
     import numpy as np
 
     from ccst_tpu_torch import cli
+    from ccst_tpu_torch.benchmarks.stylize_profile import write_tree
     from ccst_tpu_torch.models import convert, vgg, vgg_fast
     from ccst_tpu_torch.pipeline.style_bank import load_style_stats
     from ccst_tpu_torch.pipeline.stylize import StylizeEngine
@@ -954,7 +1081,7 @@ def main() -> int:
     launches = {k: 0 for k in counters}
     with tempfile.TemporaryDirectory(prefix="ccst_smoke_") as root:
         t0 = time.perf_counter()
-        write_tree(root, images_per_domain)
+        write_tree(root, images_per_domain, SIZE)
         print(f"synthetic tree: {len(DOMAINS)} x {images_per_domain} PNGs at {SIZE} px "
               f"in {time.perf_counter() - t0:.1f} s")
         enc = vgg.init_params(vgg.ENCODER_ARCH, torch.Generator().manual_seed(42))
@@ -981,7 +1108,19 @@ def main() -> int:
         n_bank_batches = len(DOMAINS) * -(-images_per_domain // batch)
         n_styles = len(DOMAINS) - 1
         n_content_batches = -(-images_per_domain // batch)
+        n_single = n_content_batches * n_styles  # one style image drawn a batch and style
         target = ["--target", "photo"]
+        outs = {  # output root of each stylize run that is checked below: (root, mode)
+            "ref": (root, "overall"), "int8-fused": (int8_root, "overall"),
+            "ref float32": (f32_root, "overall"),
+            "single ref": (os.path.join(root, "single"), "single"),
+            "single int8-fused": (os.path.join(root, "single_int8"), "single"),
+            "packed": (os.path.join(root, "packed"), "overall"),
+            "packed float32": (os.path.join(f32_root, "packed"), "overall"),
+            "int8": (os.path.join(root, "dynamic_int8"), "overall"),
+            "output-size 96": (os.path.join(root, "resized"), "overall"),
+        }
+        per_overall = {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}
         steps = (
             ("style-bank", ["style-bank", *common(root)],
              {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
@@ -995,10 +1134,35 @@ def main() -> int:
             ("style-bank float32", ["style-bank", *common(f32_root, "float32", f32_stats)],
              {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
             ("stylize ref float32", ["stylize", *common(f32_root, "float32", f32_stats), *target,
-                                     "--mode", "overall"],
-             {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}),
+                                     "--mode", "overall"], per_overall),
+            # single mode: per batch and style, the style image's relu4_1
+            # statistics (the ref encoder's 9 K3, one K5), then encode, AdaIN, decode
+            ("stylize single ref", ["stylize", *common(outs["single ref"][0]), *target,
+                                    "--mode", "single"],
+             {"K3": 27 * n_single, "K5": n_single, "K4": n_single}),
+            ("stylize single int8-fused", ["stylize", *common(outs["single int8-fused"][0]),
+                                           *target, "--mode", "single", "--engine", "int8-fused"],
+             {"K3": 9 * n_single, "K5": n_single, "K0": 14 * n_single, "K1": n_single,
+              "K2": n_single, "K4": n_single}),
+            # packed: 9 K3 a batch and 9 a style, four of them edge-padded on the packed plane
+            ("stylize packed", ["stylize", *common(outs["packed"][0]), *target, "--mode", "overall",
+                                "--engine", "packed"], per_overall),
+            ("stylize packed float32", ["stylize", *common(outs["packed float32"][0], "float32",
+                                                           f32_stats), *target, "--mode",
+                                        "overall", "--engine", "packed"], per_overall),
+            # dynamic int8: every conv is K0 with w_scale * a_scale formed on the device
+            ("stylize int8", ["stylize", *common(outs["int8"][0]), *target, "--mode", "overall",
+                              "--engine", "int8"],
+             {"K0": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}),
+            ("stylize output-size 96", ["stylize", *common(outs["output-size 96"][0]), *target,
+                                        "--mode", "overall", "--output-size", "96"], per_overall),
+            # the other content domains, which reorganize --target photo needs
+            *((f"stylize ref --target {d}", ["stylize", *common(root), "--target", d, "--mode",
+                                             "overall"], per_overall)
+              for d in DOMAINS if d != "photo"),
         )
-        for step, argv, expect in steps:
+
+        def run_step(step, argv, expect):
             expect = {k: expect.get(k, 0) for k in counters}
             for fn in counters.values():
                 fn.launches = 0
@@ -1013,13 +1177,84 @@ def main() -> int:
             if got != expect:
                 fail(f"{step}: kernel launches {got}, expected {expect}")
             print(f"{step}: kernel launches {got} (as expected)")
-            if step == "stylize int8-fused" and "loading int8 calibration" not in out.getvalue():
-                fail("stylize int8-fused did not load the calibration that calibrate wrote")
+            if "int8-fused" in step and "loading int8 calibration" not in out.getvalue():
+                fail(f"{step} did not load the calibration that calibrate wrote")
             for k in counters:
                 launches[k] += got[k]
+            return out.getvalue()
+
+        t_steps = {}
+        for step, argv, expect in steps:
+            t0 = time.perf_counter()
+            run_step(step, argv, expect)
+            t_steps[step] = time.perf_counter() - t0
+        timings = {}  # read now: the --skip-existing reruns below rewrite ref's
+        for name, (out_root, mode) in outs.items():
+            with open(os.path.join(out_root, f"pacs_photo_{mode}_stylize_time.json")) as f:
+                timings[name] = json.load(f)
+
+        # --skip-existing: a rerun of ``stylize ref`` launches and writes
+        # nothing; after one output a style is deleted, the rerun writes
+        # exactly those, one batch a style, with the bytes they had
+        def snapshot(out_root, mode="overall"):
+            base = os.path.join(out_root, "PACS", f"all_style_transferred_{mode.capitalize()}",
+                                "photo")
+            return {os.path.join(dp, f): os.stat(os.path.join(dp, f)).st_mtime_ns
+                    for dp, _, fs in os.walk(base) for f in fs}
+
+        rerun = ["stylize", *common(root), *target, "--mode", "overall", "--skip-existing"]
+        before = snapshot(root)
+        run_step("stylize --skip-existing, nothing missing", rerun, {})
+        if snapshot(root) != before:
+            fail("stylize --skip-existing rewrote outputs that existed")
+        gone = [p for p in sorted(before) if os.path.basename(p).startswith("img1_")]
+        if len(gone) != n_styles:
+            fail(f"expected one img1 output a style, found {gone}")
+        kept_bytes = {p: open(p, "rb").read() for p in gone}
+        for p in gone:
+            os.remove(p)
+        run_step("stylize --skip-existing, one output a style deleted", rerun,
+                 {"K3": 18 * n_styles, "K4": n_styles})
+        after = snapshot(root)
+        rewritten = sorted(p for p in after if after[p] != before.get(p))
+        if rewritten != sorted(gone) or set(after) != set(before):
+            fail(f"stylize --skip-existing rewrote {rewritten}, expected {sorted(gone)}")
+        for p in gone:
+            if open(p, "rb").read() != kept_bytes[p]:
+                fail(f"{p}: rewritten with other bytes than the first run's")
+        print(f"stylize --skip-existing: nothing rewritten when nothing was missing; exactly the "
+              f"{len(gone)} deleted outputs rewritten, byte for byte")
+
         for k in ("K0", "K1", "K2", "K3", "K4", "K5"):
             if launches[k] == 0:
                 fail(f"{k} was never launched on the main paths")
+
+        # the list subcommands on the same tree: no device, each exits 0 and
+        # writes its lists
+        split_root = os.path.join(root, "split")
+        for step, argv, outputs in (
+            ("reorganize", ["reorganize", "--dataset", "pacs", "--target", "photo", "--list-root",
+                            root, "--data-root", root],
+             [os.path.join(root, "PACS", "kfold_adain-overall-multi", "photo")]),
+            ("gen-lists", ["gen-lists", "--dataset", "pacs", "--target", "photo", "--list-root",
+                           root, "--k", "2"],
+             [os.path.join(root, "txt_lists", "pacs_adain-overall-K2", "photo",
+                           f"{d}_train.txt") for d in DOMAINS if d != "photo"]),
+            ("filter-blank", ["filter-blank", "--dataset", "pacs", "--list-root", root,
+                              "--data-root", root],
+             [os.path.join(root, "txt_lists", "pacs_discardBlackWhite", f"{d}_train.txt")
+              for d in DOMAINS]),
+            ("split-data", ["split-data", "--dataset", "pacs", "--data-root", root, "--list-root",
+                            split_root, "--tree-subdir", "PACS/kfold"],
+             [os.path.join(split_root, "txt_lists", "pacs", f"{d}_{part}.txt")
+              for d in DOMAINS for part in ("train", "test")]),
+        ):
+            printed = run_step(step, [*argv, "--device", "cuda"], {})
+            missing = [o for o in outputs if not os.path.exists(o)]
+            if missing:
+                fail(f"{step} did not write {missing}")
+            if step == "reorganize" and f"placed {3 * 3 * images_per_domain} files" not in printed:
+                fail(f"reorganize placed another count: {printed.strip()}")
 
         for d in DOMAINS:
             mean, std = load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
@@ -1042,19 +1277,23 @@ def main() -> int:
         if len(scales) != 18 or not all(math.isfinite(v) and v > 0 for v in scales.values()):
             fail(f"calibrate wrote bad scales: {scales}")
         print(f"calibrate: {len(scales)} scales, {min(scales.values()):.4g}..{max(scales.values()):.4g}")
-        for engine_name, out_root in (("ref", root), ("int8-fused", int8_root),
-                                      ("ref float32", f32_root)):
-            out_dir = os.path.join(out_root, "PACS", "all_style_transferred_Overall", "photo")
-            outputs = [os.path.join(dp, f) for dp, _, fs in os.walk(out_dir) for f in fs]
+        for engine_name, (out_root, mode) in outs.items():
+            outputs = sorted(snapshot(out_root, mode))
             if len(outputs) != images_per_domain * n_styles:
                 fail(f"stylize {engine_name} wrote {len(outputs)} images, "
                      f"expected {images_per_domain * n_styles}")
-            with open(os.path.join(out_root, "pacs_photo_overall_stylize_time.json")) as f:
-                timing = json.load(f)
-            print(f"stylize {engine_name} timing: " + json.dumps(timing))
-            sample = read_images(sorted(outputs)[:batch])
-            print(f"stylized PNGs ({engine_name}): u8 range {sample.min()}..{sample.max()}, "
-                  f"mean {sample.mean():.1f} over {len(sample)} images")
+            print(f"stylize {engine_name} timing: " + json.dumps(timings[engine_name]))
+            sample = read_images(outputs[:batch])
+            side = 96 if engine_name == "output-size 96" else SIZE
+            if sample.shape[1:] != (side, side, 3):
+                fail(f"stylize {engine_name} wrote {sample.shape[1:]} PNGs, expected {side} px")
+            if int(sample.max()) - int(sample.min()) < 64:
+                fail(f"stylize {engine_name}: near-constant PNGs ({sample.min()}..{sample.max()})")
+            print(f"stylized PNGs ({engine_name}): {side} px, u8 range {sample.min()}.."
+                  f"{sample.max()}, mean {sample.mean():.1f} over {len(sample)} images")
+        # disk to disk through the CLI: each run's stylized images over its wall
+        # time, the model and kernel setup included
+        print("cli seconds: " + json.dumps({k: round(v, 3) for k, v in t_steps.items()}))
 
         # -- 5. whole paths vs plain paths ------------------------------------
         from ccst_tpu_torch.models.vgg import Conv, Pool, Tap, Upsample
@@ -1132,7 +1371,108 @@ def main() -> int:
           f"{(got32 - ref_out).abs().mean().item():.3e}; launches {counts} (as expected)")
     if not mae32 <= F32_MAE_BAR:
         fail(f"float32 whole-path MAE {mae32:.3e} > {F32_MAE_BAR}")
-    del got32, want32, feat32
+    del want32, feat32
+
+    # packed: the level-1 stage as four edge-padded K3 convs on the packed
+    # plane; against the same path composed from the plain versions, and in
+    # float32 against the float32 ref engine (ccst_tpu's own bar, atol 5e-5)
+    def plain_packed(ep, dp, images, dtype):
+        def conv(x, cw, relu, pad):
+            return reflect_conv3x3_reference(x, cw.w, cw.b, relu, pad)
+
+        x = vgg.conv1x1((images.float() / 255.0).to(dtype), ep["conv0"])
+        xp = vgg_fast.pack_s2d(x)
+        xp = torch.nn.functional.pad(xp, (0, ep["conv1_1"].w.shape[2] - xp.shape[3]))
+        xp = conv(conv(xp, ep["conv1_1"], True, "edge"), ep["conv1_2"], True, "edge")
+        feat = plain_apply(ep, phase_max(xp, 64), vgg_fast._ENC_TAIL)
+        outs = []
+        for m, sd in zip(s_means, s_stds):
+            y = plain_apply(dp, fused_adain_reference(feat, m, sd, 1.0), vgg_fast._DEC_MID)
+            y = conv(conv(y, dp["dconv1_2"], True, "edge"), dp["dconv1_1"], False, "edge")
+            outs.append(vgg_fast.unpack_d2s(y, 3).float())
+        return torch.stack(outs)
+
+    fast = {}
+    for name, dtype in (("packed", torch.bfloat16), ("packed-float32", torch.float32)):
+        eng = StylizeEngine(enc, dec, dtype=dtype, device=dev, engine="packed")
+        for fn in counters.values():
+            fn.launches = 0
+        got_p = eng.stylize_multi(images_u8, s_means, s_stds, 1.0)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        if counts != {"K3": 9 + 9 * n_styles, "K4": 1}:
+            fail(f"{name} stylize_multi: launches {counts}, expected K3 {9 + 9 * n_styles}, K4 1")
+        ep = vgg_fast.prepare_encoder(eng._enc_w, dtype, dev)
+        dp = vgg_fast.prepare_decoder(eng._dec_w, dtype, dev)
+        with torch.no_grad():
+            want_p = plain_packed(ep, dp, images_u8, dtype)
+        if got_p.shape != want_p.shape or not bool(got_p.isfinite().all()):
+            fail(f"{name}: shape {tuple(got_p.shape)} or non-finite values")
+        mae_p = (got_p - want_p).abs().mean().item()
+        bar = MAE_BAR if dtype == torch.bfloat16 else F32_MAE_BAR
+        print(f"{name}: whole path vs plain path: MAE {mae_p:.3e} max "
+              f"{(got_p - want_p).abs().max().item():.3e}; launches {counts} (as expected)")
+        if not mae_p <= bar:
+            fail(f"{name} whole-path MAE {mae_p:.3e} > {bar}")
+        if dtype == torch.float32:
+            err = (got_p - got32).abs()
+            print(f"packed float32 vs ref float32: max abs {err.max().item():.3e}, MAE "
+                  f"{err.mean().item():.3e} (bar: max {PACKED_F32_ATOL})")
+            if not err.max().item() <= PACKED_F32_ATOL:
+                fail(f"packed float32 is {err.max().item():.3e} off ref float32 > {PACKED_F32_ATOL}")
+        else:
+            print(f"packed vs ref (bf16): MAE {(got_p - ref_out).abs().mean().item():.3e}")
+        fast[name] = eng
+        del got_p, want_p
+    del got32
+
+    # the dynamic int8 engine: every conv quantizes its input on the device
+    # and K0 dequantizes with w_scale * a_scale formed there; against its plain
+    # composition (the same quantization glue, K0's and K4's plain versions)
+    # and against ref
+    def plain_q8(ep, dp, images):
+        def qref(x, q, relu, pad):
+            xq, a_scale = vgg_fast._quantize_act(x)
+            return qconv3x3_s8_reference(xq, q.wq, q.k * a_scale, q.kb, relu, False,
+                                         torch.bfloat16, pad)
+
+        x = vgg.conv1x1((images.float() / 255.0).to(torch.bfloat16), ep["conv0"])
+        xp = qref(qref(vgg_fast.pack_s2d(x), ep["conv1_1"], True, "edge"), ep["conv1_2"], True,
+                  "edge")
+        feat = vgg_fast._walk(vgg_fast._ENC_TAIL, phase_max(xp, 64),
+                              lambda t, layer: qref(t, ep[layer.name], layer.relu, "reflect"))
+        outs = []
+        for m, sd in zip(s_means, s_stds):
+            y = vgg_fast._walk(vgg_fast._DEC_MID, fused_adain_reference(feat, m, sd, 1.0),
+                               lambda t, layer: qref(t, dp[layer.name], layer.relu, "reflect"))
+            y = qref(qref(y, dp["dconv1_2"], True, "edge"), dp["dconv1_1"], False, "edge")
+            outs.append(vgg_fast.unpack_d2s(y, 3).float())
+        return torch.stack(outs)
+
+    eng = StylizeEngine(enc, dec, dtype=torch.bfloat16, device=dev, engine="int8")
+    for fn in counters.values():
+        fn.launches = 0
+    got_d = eng.stylize_multi(images_u8, s_means, s_stds, 1.0)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if counts != {"K0": 9 + 9 * n_styles, "K4": 1}:
+        fail(f"int8 stylize_multi: launches {counts}, expected K0 {9 + 9 * n_styles}, K4 1")
+    with torch.no_grad():
+        want_d = plain_q8(vgg_fast.prepare_encoder_q8(eng._enc_w, torch.bfloat16, dev),
+                          vgg_fast.prepare_decoder_q8(eng._dec_w, torch.bfloat16, dev), images_u8)
+    if got_d.shape != ref_out.shape or not bool(got_d.isfinite().all()):
+        fail(f"int8: shape {tuple(got_d.shape)} or non-finite values")
+    mae_d = (got_d - want_d).abs().mean().item()
+    psnr_d = 10 * math.log10(spread ** 2 / ((got_d - ref_out) ** 2).mean().item())
+    print(f"int8 (dynamic): whole path vs plain path: MAE {mae_d:.3e} max "
+          f"{(got_d - want_d).abs().max().item():.3e}; vs bf16 ref: PSNR {psnr_d:.2f} dB; "
+          f"launches {counts} (as expected)")
+    if not mae_d <= MAE_BAR:
+        fail(f"int8 whole-path MAE {mae_d:.3e} > {MAE_BAR}")
+    if not psnr_d > PSNR_BAR:
+        fail(f"int8 vs ref PSNR {psnr_d:.2f} dB <= {PSNR_BAR}")
+    fast["int8"] = eng
+    del got_d, want_d
 
     # int8-fused, from the scales calibrate wrote, against its plain composition
     def plain_q8s(ep, dp, images):
@@ -1236,7 +1576,8 @@ def main() -> int:
 
     rates = {"bank-step": dict(ms=bank_ms, img_s=batch / (bank_ms * 1e-3)),
              **{name: dict(ms=ms) for name, ms in decode_ms.items()}}
-    for name, eng in (("ref", engine), *engines.items(), ("ref-float32", engine32)):
+    for name, eng in (("ref", engine), *engines.items(), ("ref-float32", engine32),
+                      *fast.items()):
         ms = time_ms(torch, lambda: eng.stylize_multi(images_u8, s_means, s_stds, 1.0),
                      reps=3, runs=5)
         # the same batch captured into one CUDA graph and replayed: the card's own
@@ -1255,14 +1596,15 @@ def main() -> int:
 
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
-               "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN), "stylize ref"),
+               "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN), "stylize ref, packed"),
         "K4": ("fused_adain_multi", "cuda", "ccst_tpu_torch/csrc/adain.cu",
                "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
-               "stylize ref, int8-fused"),
+               "stylize (every engine, both modes)"),
         "K5": ("channel_moments", "cuda", "ccst_tpu_torch/csrc/moments.cu",
-               "ccst_tpu/kernels/welford_pallas.py:52", list(relu4_1_shape(batch)), "style-bank"),
+               "ccst_tpu/kernels/welford_pallas.py:52", list(relu4_1_shape(batch)),
+               "style-bank, stylize --mode single"),
         "K0": ("qconv3x3_s8", "cuda", "ccst_tpu_torch/csrc/qconv3x3_s8.cu",
-               "ccst_tpu/models/vgg_fast.py:381", list(K0_MAIN), "stylize int8-fused"),
+               "ccst_tpu/models/vgg_fast.py:381", list(K0_MAIN), "stylize int8-fused, int8"),
         "K1": ("encoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
                "ccst_tpu/kernels/level1_pallas.py:367", [4, 256, 256, 12], "stylize int8-fused"),
         "K2": ("decoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
@@ -1289,11 +1631,13 @@ def main() -> int:
                         and r.get("styles", n_styles) == n_styles
                         and r.get("relu", True) and r.get("dtype", "torch.bfloat16") == "torch.bfloat16"
                         and r.get("variant", "i8i32") in ("i8i32", "F9")
-                        and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False))
+                        and r.get("mode", "full") in ("direct", "full") and not r.get("cat", False)
+                        and r.get("pad", "reflect") == "reflect" and "scale" not in r)
         library_ms = main_row.get("cudnn_bf16_ms", main_row.get("library_ms"))
         per_shape = [
-            {key: r.get(key) for key in ("layer", "variant", "mode", "dtype", "alpha", "styles",
-                                         "kernel_variant", "shape", "ms", "graph_ms", "plain_ms",
+            {key: r.get(key) for key in ("layer", "variant", "mode", "pad", "scale", "dtype",
+                                         "alpha", "styles", "kernel_variant", "shape", "ms",
+                                         "graph_ms", "plain_ms",
                                          "bound_ms", "bound_by", "cudnn_bf16_ms", "cudnn_f32_ms",
                                          "library_ms", "cublas_bf16_out_ms", "single_launches_ms",
                                          "call_ms", "empty_launch_ms", "replaces_chain_ms", "k0_ms")

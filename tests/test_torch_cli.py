@@ -156,13 +156,6 @@ def test_calibrate_then_int8_fused_stylize(tree, capsys):
     assert img.shape == (32, 32, 3) and int(img.max()) > int(img.min())
 
 
-@pytest.mark.parametrize("extra", [["--mode", "single"], ["--engine", "packed"]])
-def test_unported_modes_raise(tree, extra):
-    common = _common(tree, os.path.join(tree, "stats_torch"), os.path.join(tree, "x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_cli(["stylize", *common, "--device", "cpu", "--target", "photo", *extra])
-
-
 def test_cli_never_loads_jax(tree):
     common = [*_common(tree, os.path.join(tree, "stats_sub"), tree), "--device", "cpu"]
     code = (

@@ -63,6 +63,38 @@ def test_reference_matches_pallas_conv(rng, shape, relu):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+# (n, h, w, cin, cout): the packed engine's four level-1 convs at a small plane
+# (conv1_1 with its 16 padded channels, conv1_2, dconv1_2 folded, dconv1_1),
+# then one row and one column
+EDGE_SHAPES = [(2, 6, 5, 16, 64), (1, 4, 4, 64, 64), (1, 3, 5, 16, 64), (2, 4, 6, 64, 12),
+               (1, 1, 7, 8, 16), (1, 5, 1, 8, 16)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_edge_mode_matches_xla_edge_pad_conv(rng, shape):
+    """``pad_mode="edge"``: jnp.pad(mode="edge") + VALID conv with float32
+    sums, as ``ccst_tpu``'s packed_reflect_conv runs it, within the float32
+    tolerance; planes of one row or column are fine for edge padding."""
+    import jax
+
+    n, h, w, cin, cout = shape
+    x, wk, b = _operands(rng, n, h, w, cin, cout)
+    xe = jnp.pad(jnp.asarray(x), ((0, 0), (1, 1), (1, 1), (0, 0)), mode="edge")
+    ref = jax.lax.conv_general_dilated(
+        xe, jnp.asarray(wk), (1, 1), "VALID", dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST) + jnp.asarray(b)
+    cw = prepare_conv(wk, b, torch.float32, "cpu")
+    got = reflect_conv3x3(torch.from_numpy(x), cw, relu=False, pad_mode="edge")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_rejects_unknown_pad_mode(rng):
+    x, wk, b = _operands(rng, 1, 4, 4, 8, 8)
+    with pytest.raises(ValueError, match="pad_mode"):
+        reflect_conv3x3(torch.from_numpy(x), prepare_conv(wk, b, torch.float32, "cpu"),
+                        pad_mode="zero")
+
+
 def test_reference_rounds_once_to_bfloat16(rng):
     """bf16 operands upcast, f32 sums, one rounding: equal to rounding the
     f32 result of the same bf16 values."""
@@ -106,18 +138,34 @@ MODEL_SHAPES = [(2, 11, 19, 24, 3), (1, 2, 2, 64, 64), (1, 8, 37, 80, 130), (3, 
                 (1, 3, 5, 16, 264)]
 
 
+def _model_case(rng, shape, pad_mode):
+    """The wgmma kernel's addressing model and the plain version, both with
+    ``pad_mode``, on small integers."""
+    n, h, w, cin, cout = shape
+    x = rng.integers(-4, 5, (n, h, w, cin)).astype(np.float64)
+    wk = torch.from_numpy(rng.integers(-4, 5, (3, 3, cin, cout)).astype(np.float32)).bfloat16()
+    packed = pack_weight(wk)
+    got = igemm_layout.simulate_conv(x, packed.double().numpy(), cout,
+                                     reflect=pad_mode == "reflect")
+    want = reflect_conv3x3_reference(torch.from_numpy(x), wk.double(), torch.zeros(cout),
+                                     relu=False, pad_mode=pad_mode)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 @pytest.mark.parametrize("shape", MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_addressing_model_equals_plain_version(rng, shape):
     """The halo gather by reflected index, the planes, the tap offsets and the
     packed weight runs, walked in numpy as the kernel walks them, give the
     plain version's sums exactly (small integers: float64 adds no rounding)."""
-    n, h, w, cin, cout = shape
-    x = rng.integers(-4, 5, (n, h, w, cin)).astype(np.float64)
-    wk = torch.from_numpy(rng.integers(-4, 5, (3, 3, cin, cout)).astype(np.float32)).bfloat16()
-    packed = pack_weight(wk)
-    got = igemm_layout.simulate_conv(x, packed.double().numpy(), cout, reflect=True)
-    want = reflect_conv3x3_reference(torch.from_numpy(x), wk.double(), torch.zeros(cout), relu=False)
-    np.testing.assert_array_equal(got, want.numpy())
+    _model_case(rng, shape, "reflect")
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES + [(1, 1, 9, 16, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_addressing_model_edge_mode(rng, shape):
+    """The same model with the padded index clamped (the packed engine's
+    level-1 convs; one row is a valid edge-padded plane)."""
+    _model_case(rng, shape, "edge")
 
 
 def test_prepare_conv_rounds_bias_through_dtype(rng):
@@ -169,7 +217,7 @@ def test_wrapper_rejects_weights_of_another_dtype():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("cin", [3, 64])
+@pytest.mark.parametrize("cin", [3, 16, 64])
 def test_device_tensor_reaches_the_build(monkeypatch, dtype, cin):
     """bfloat16 and float32 with weights prepared in the same dtype pass every
     check and ask for the kernel library: float32 is a route of the kernel,
@@ -245,17 +293,35 @@ F32_MODEL_SHAPES = [(2, 11, 19, 4, 3), (1, 2, 2, 12, 7), (1, 17, 9, 68, 130), (3
                     (1, 40, 3, 4, 8), (1, 2, 3, 68, 3)]
 
 
+def _f32_model_case(rng, shape, pad_mode):
+    n, h, w, cin, cout = shape
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    wk = torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32))
+    got = simulate_f32_conv(x.astype(np.float64), pack_f32_stages(wk).double().numpy(), cout,
+                            reflect=pad_mode == "reflect")
+    want = reflect_conv3x3_reference(torch.from_numpy(x), wk, torch.zeros(cout), relu=False,
+                                     pad_mode=pad_mode)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape", F32_MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_f32_kernel_addressing_model_equals_plain_version(rng, shape):
     """The float32 stage kernel's halo planes, thread tiles, tap offsets and
     weight stages, walked in numpy, give the plain version's sums within 1e-5
     (the model sums in float64, the plain version in float32)."""
-    n, h, w, cin, cout = shape
-    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
-    wk = torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32))
-    got = simulate_f32_conv(x.astype(np.float64), pack_f32_stages(wk).double().numpy(), cout)
-    want = reflect_conv3x3_reference(torch.from_numpy(x), wk, torch.zeros(cout), relu=False)
-    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
+    _f32_model_case(rng, shape, "reflect")
+
+
+# the packed engine's float32 level-1 shapes at a small plane: conv1_1 (Cin 16
+# after its zero channels), dconv1_2 folded, dconv1_1 (Cout = 12: the 64-wide
+# tile), then one row
+F32_EDGE_SHAPES = [(1, 5, 18, 16, 256), (1, 3, 4, 64, 256), (2, 6, 5, 256, 12), (1, 1, 9, 12, 7)]
+
+
+@pytest.mark.parametrize("shape", F32_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_f32_kernel_addressing_model_edge_mode(rng, shape):
+    """The float32 stage kernel's model with edge padding, within 1e-5."""
+    _f32_model_case(rng, shape, "edge")
 
 
 def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):

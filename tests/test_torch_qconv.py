@@ -147,3 +147,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng, x, pad, error):
     with pytest.raises(error):
         qconv.qconv3x3_s8(x, q, True, torch.bfloat16, pad)
     assert qconv.qconv3x3_s8.launches == before
+
+
+def test_dynamic_multiplier_reaches_the_build(rng, monkeypatch):
+    """The dynamic engine's multiplier ``k * a_scale``, formed on the input's
+    device from a 0-d float32 scale, passes every operand check and asks for
+    the kernel library: the launch needs nothing from the host."""
+    from ccst_tpu_torch.kernels import _build
+
+    class Reached(Exception):
+        pass
+
+    def library():
+        raise Reached
+
+    q = qconv.make_qconv(rng.integers(-127, 128, (3, 3, 64, 8)).astype(np.int8),
+                         np.ones(8, np.float32), np.zeros(8, np.float32), False, False, "meta")
+    q = q._replace(k=q.k * torch.empty((), dtype=torch.float32, device="meta"))
+    monkeypatch.setattr(_build, "library", library)
+    with pytest.raises(Reached):
+        qconv.qconv3x3_s8(_meta((1, 1, 4, 64)), q, False, torch.float32, "edge")

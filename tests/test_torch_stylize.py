@@ -9,7 +9,15 @@ fused AdaIN rounds once where the JAX ops round twice); uint8 outputs within
 one level. The int8 engines: the port's ``int8-static`` vs JAX's with the same
 scales at MAE <= 1e-3 (conv0's three-term float32 sum can round differently
 before ``quantize_static`` and flip an int8 step, and AdaIN rounds as above);
-the port's ``int8-fused`` equals its ``int8-static`` bit for bit. Where a bar is set for images in [0, 1], the random decoder's last
+the port's ``int8-fused`` equals its ``int8-static`` bit for bit. The ``packed`` engine in float32 against ccst_tpu's
+``packed`` engine and against the port's float32 ``ref`` engine: atol 5e-5
+(ccst_tpu's own bar for packed vs ref, tests/test_vgg_fast.py); in bfloat16
+MAE <= 1e-3. The dynamic ``int8`` engine against ccst_tpu's: MAE <= 1e-3 (in
+float32 the fused AdaIN's last bits can flip one rounding of the next
+``x / s``; each conv alone is bit for bit, tests/test_torch_vgg_fast.py).
+``resize_bilinear`` against ``jax.image.resize``: atol 1e-5; the engines with
+``output_size`` as their float32 bar. ``coral`` against ccst_tpu's: float32,
+atol 1e-5. Where a bar is set for images in [0, 1], the random decoder's last
 conv is rescaled so that the outputs spread over that range (``_spread``).
 """
 import os
@@ -177,12 +185,6 @@ def test_int8_engine_style_stats_of_uses_ref_encoder(rng, params):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw",[dict(engine="packed"), dict(output_size=96)])
-def test_unported_options_raise(params, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StylizeEngine(*params, dtype=torch.float32, device="cpu", **kw)
-
-
 def _int8_case(rng, params, size):
     enc, dec = params[0], _spread(params[1])
     images = rng.random((2, size, size, 3), np.float32)
@@ -233,3 +235,97 @@ def test_int8_fused_equals_int8_static(rng, params, size, monkeypatch):
     out = -(-size // 8) * 8  # ceil-mode pools: 36 px decodes to 40 px, as in ccst_tpu
     assert outs["int8-static"].shape == (2, 2, out, out, 3)
     assert torch.equal(outs["int8-static"], outs["int8-fused"])
+
+
+@pytest.mark.parametrize("engine,dtype", [("packed", "float32"), ("packed", "bfloat16"),
+                                          ("int8", "float32"), ("int8", "bfloat16")])
+def test_fast_engines_match_jax_engines(rng, params, engine, dtype):
+    """``packed`` and the dynamic ``int8`` engine: ``stylize_multi`` against
+    ccst_tpu's engine of the same name and dtype, on outputs that spread."""
+    enc, dec = params[0], _spread(params[1])
+    images = rng.random((2, 32, 32, 3), np.float32)
+    s_means, s_stds = _banks(rng, 2)
+    ref = np.asarray(JaxEngine(enc, dec, dtype=getattr(jnp, dtype), engine=engine).stylize_multi(
+        jnp.asarray(images), s_means, s_stds, 0.8))
+    got = StylizeEngine(enc, dec, dtype=getattr(torch, dtype), device="cpu", engine=engine
+                        ).stylize_multi(torch.from_numpy(images), s_means, s_stds, 0.8)
+    assert got.shape == ref.shape == (2, 2, 32, 32, 3) and got.dtype == torch.float32
+    assert ref.max() - ref.min() >= 0.5, (ref.min(), ref.max())
+    if (engine, dtype) == ("packed", "float32"):
+        np.testing.assert_allclose(got.numpy(), ref, atol=5e-5)
+    mae = float(np.mean(np.abs(got.numpy() - ref)))
+    assert mae <= 1e-3, mae
+
+
+def test_packed_float32_equals_ref_float32(rng, params):
+    """The packed engine computes what ``ref`` computes: atol 5e-5 in float32,
+    with the level-1 stage as edge-padded convs on the packed plane (two in
+    the encoder, two a style in the decoder) and every other conv as in ``ref``."""
+    from ccst_tpu_torch.models import vgg_fast
+
+    enc, dec = params[0], _spread(params[1])
+    images = torch.from_numpy(rng.random((2, 32, 32, 3), np.float32))
+    s_means, s_stds = _banks(rng, 3)
+    want = StylizeEngine(enc, dec, dtype=torch.float32, device="cpu").stylize_multi(
+        images, s_means, s_stds, 1.0)
+    pads = []
+    conv = vgg_fast.reflect_conv3x3
+
+    def spy(x, cw, relu=True, pad_mode="reflect"):
+        pads.append(pad_mode)
+        return conv(x, cw, relu, pad_mode)
+
+    engine = StylizeEngine(enc, dec, dtype=torch.float32, device="cpu", engine="packed")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(vgg_fast, "reflect_conv3x3", spy)
+        got = engine.stylize_multi(images, s_means, s_stds, 1.0)
+    assert pads == ["edge"] * 2 + ["reflect"] * 7 + (["reflect"] * 7 + ["edge"] * 2) * 3
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-5)
+
+
+@pytest.mark.parametrize("src,size", [(64, 12), (512, 96), (12, 40), (33, 7)],
+                         ids=["down64to12", "down512to96", "up12to40", "odd33to7"])
+def test_resize_bilinear_matches_jax_image_resize(rng, src, size):
+    from ccst_tpu.pipeline.stylize import resize_bilinear as jax_resize
+    from ccst_tpu_torch.pipeline.stylize import resize_bilinear
+
+    images = rng.random((2, src, src, 3), np.float32)
+    ref = np.asarray(jax_resize(jnp.asarray(images), size))
+    got = resize_bilinear(torch.from_numpy(images), size)
+    assert got.shape == (2, size, size, 3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("size,u8", [(12, False), (48, True)], ids=["down-f32", "up-u8"])
+def test_output_size_matches_jax_engine(rng, params, size, u8):
+    """``output_size``: the float32 output resized before the uint8
+    quantization, as ccst_tpu's engine does; float32 within the float32 bar,
+    uint8 within one level."""
+    enc, dec = params[0], _spread(params[1])
+    images = rng.random((2, 32, 32, 3), np.float32)
+    s_means, s_stds = _banks(rng, 1)
+    kw = dict(output_size=size, output_u8=u8)
+    ref = np.asarray(JaxEngine(enc, dec, dtype=jnp.float32, **kw).stylize(
+        jnp.asarray(images), s_means[0], s_stds[0], 1.0))
+    got = StylizeEngine(enc, dec, dtype=torch.float32, device="cpu", **kw).stylize(
+        torch.from_numpy(images), s_means[0], s_stds[0], 1.0)
+    assert got.shape == ref.shape == (2, size, size, 3)
+    if u8:
+        assert got.dtype == torch.uint8
+        assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
+    else:
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("shapes", [((16, 20), (16, 20)), ((24, 12), (9, 31))],
+                         ids=["same", "other"])
+def test_coral_matches_jax(rng, shapes):
+    from ccst_tpu.ops.adain import coral as jax_coral
+    from ccst_tpu_torch.ops.adain import coral
+
+    source = rng.random((*shapes[0], 3), np.float32)
+    target = (rng.random((*shapes[1], 3)) * 0.5 + 0.2).astype(np.float32)
+    ref = np.asarray(jax_coral(jnp.asarray(source), jnp.asarray(target)))
+    got = coral(torch.from_numpy(source), torch.from_numpy(target))
+    assert got.shape == source.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)

@@ -213,3 +213,136 @@ def test_int8_static_matches_golden(params):
     span = float(golden.max() - golden.min()) or 1.0
     err = np.abs(out.numpy() - golden)
     assert err.mean() / span < 2e-3, f"mean drift {err.mean() / span:.2e}"
+
+
+# ---- the packed engine (float32: exact to float tolerance) ----------------
+#
+# Tolerances: the port's packed encoder / decoder against ccst_tpu's in
+# float32, atol 2e-5 (tests/test_vgg_fast.py's bar for packed vs ref: the same
+# products, sums in another order); a packed conv against ccst_tpu's
+# packed_reflect_conv, rtol 1e-4 / atol 1e-5 (one layer).
+
+
+def _packed_prep(params, which, dtype=torch.float32):
+    enc, dec = params
+    if which == "encoder":
+        return tf.prepare_encoder(tf.cast_params(enc, dtype), dtype, "cpu"), jf.prepare_encoder(
+            jax.tree.map(jnp.asarray, enc))
+    return tf.prepare_decoder(tf.cast_params(dec, dtype), dtype, "cpu"), jf.prepare_decoder(
+        jax.tree.map(jnp.asarray, dec))
+
+
+@pytest.mark.parametrize("name", ["conv1_1", "conv1_2", "dconv1_2", "dconv1_1"])
+def test_packed_conv_matches_jax_packed_reflect_conv(rng, params, name):
+    """K3's plain version with edge padding on the packed kernel is
+    ccst_tpu's packed_reflect_conv (conv1_1 with its zero channels 12..15)."""
+    which = "encoder" if name.startswith("conv") else "decoder"
+    ours, theirs = _packed_prep(params, which)
+    cin = theirs[name]["K"].shape[2]
+    x = (rng.random((2, 6, 5, cin), np.float32) - 0.3).astype(np.float32)
+    relu = name != "dconv1_1"
+    ref = np.asarray(jf.packed_reflect_conv(jnp.asarray(x), theirs[name]["K"],
+                                            theirs[name]["b"], relu=relu))
+    xt = torch.from_numpy(x)
+    if name == "conv1_1":
+        assert ours[name].w.shape[2] == tf.PACKED_CIN == 16 > cin
+        xt = torch.nn.functional.pad(xt, (0, tf.PACKED_CIN - cin))
+    got = tf.packed_reflect_conv(xt, ours[name], relu)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["encoder", "decoder"])
+def test_packed_engine_matches_jax_float32(rng, params, which):
+    ours, theirs = _packed_prep(params, which)
+    if which == "encoder":
+        x = rng.random((2, 32, 32, 3), np.float32)
+        ref = jf.apply_encoder_packed(theirs, jnp.asarray(x), jnp.float32)
+        got = tf.apply_encoder_packed(ours, torch.from_numpy(x), torch.float32)
+    else:
+        x = (rng.random((2, 4, 4, 512), np.float32) * 0.5).astype(np.float32)
+        ref = jf.apply_decoder_packed(theirs, jnp.asarray(x), jnp.float32)
+        got = tf.apply_decoder_packed(ours, torch.from_numpy(x), torch.float32)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+
+def test_packed_engine_refuses_odd_sizes(params):
+    """As ccst_tpu refuses them (tests/test_vgg_fast.py::test_packed_rejects_odd_sizes)."""
+    ours, _ = _packed_prep(params, "encoder")
+    with pytest.raises(ValueError, match="even"):
+        tf.apply_encoder_packed(ours, torch.zeros((1, 33, 32, 3)), torch.float32)
+
+
+# ---- the dynamic int8 engine: bit for bit per layer ------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_act_matches_jax(rng, dtype):
+    x = (rng.standard_normal((2, 5, 7, 64)) * 3).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    q_ref, s_ref = jf._quantize_act(jnp.asarray(np.asarray(xt.float()), getattr(jnp, dtype)))
+    q, s = tf._quantize_act(xt)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32 and s.dim() == 0
+    assert float(s) == float(s_ref)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
+
+
+# (layer, input (N, H, W, Cin), pad, relu, out dtype): the packed conv1_1 (K0's
+# 4-byte gather, Cin = 12), a reflect layer, conv4_1, the folded dconv1_2 and
+# the packed dconv1_1 (no ReLU, Cout = 12)
+Q8_CASES = [
+    ("conv1_1", (2, 4, 6, 12), "edge", True, "float32"),
+    ("conv2_1", (2, 5, 3, 64), "reflect", True, "float32"),
+    ("conv4_1", (1, 4, 4, 256), "reflect", True, "bfloat16"),
+    ("dconv1_2", (1, 4, 5, 64), "edge", True, "bfloat16"),
+    ("dconv1_1", (2, 3, 4, 256), "edge", False, "float32"),
+]
+
+
+@pytest.mark.parametrize("name,shape,pad,relu,out", Q8_CASES)
+def test_qconv_apply_matches_jax(rng, params, name, shape, pad, relu, out):
+    """One conv of the dynamic engine: quantize, K0's plain version with the
+    device-resident scale, dequant; the same bits as ccst_tpu's
+    ``_qconv_apply`` on the same float input and the same prepared layer."""
+    which = 0 if name.startswith("conv") else 1
+    cast = tf.cast_params(params[which], getattr(torch, out))
+    ours = (tf.prepare_encoder_q8 if which == 0 else tf.prepare_decoder_q8)(
+        cast, getattr(torch, out), "cpu")[name]
+    theirs = (jf.prepare_encoder_q8 if which == 0 else jf.prepare_decoder_q8)(
+        {k: {kk: jnp.asarray(vv) for kk, vv in v.items()} for k, v in cast.items()})[name]
+    np.testing.assert_array_equal(ours.wq.numpy(), np.asarray(theirs.wq))
+    np.testing.assert_array_equal(ours.k.numpy(), np.asarray(theirs.w_scale))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(getattr(torch, out))
+    ref = jf._qconv_apply(jnp.asarray(np.asarray(x.float()), getattr(jnp, out)), theirs, relu,
+                          getattr(jnp, out), pad)
+    got = tf._qconv_apply(x, ours, relu, getattr(torch, out), pad)
+    assert got.dtype == getattr(torch, out) and got.shape[-1] == ref.shape[-1]
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
+def test_dynamic_engine_scale_stays_on_the_device(rng, params, monkeypatch):
+    """Every conv of the int8 engine hands K0 a multiplier ``w_scale *
+    a_scale`` formed on the input's device (one float32 value a channel), and
+    nothing reads a tensor back to the host on the way: ``Tensor.item`` and
+    ``float(tensor)`` raise here."""
+    seen = []
+    conv = tf.qconv3x3_s8
+
+    def spy(x, q, relu, out_dtype, pad_mode):
+        seen.append((q.k.dtype, q.k.shape == q.kb.shape, q.k.device == x.device, pad_mode))
+        return conv(x, q, relu, out_dtype, pad_mode)
+
+    def no_host_read(*args, **kwargs):
+        raise AssertionError("a tensor was read back to the host")
+
+    enc, dec = (tf.cast_params(p, torch.bfloat16) for p in params)
+    ep = tf.prepare_encoder_q8(enc, torch.bfloat16, "cpu")
+    dp = tf.prepare_decoder_q8(dec, torch.bfloat16, "cpu")
+    images = torch.from_numpy(rng.random((1, 16, 16, 3), np.float32))
+    monkeypatch.setattr(tf, "qconv3x3_s8", spy)
+    monkeypatch.setattr(torch.Tensor, "item", no_host_read)
+    monkeypatch.setattr(torch.Tensor, "__float__", no_host_read)
+    out = tf.apply_decoder_q8(dp, tf.apply_encoder_q8(ep, images))
+    assert out.shape == (1, 16, 16, 3)
+    assert len(seen) == 18 and {s[:3] for s in seen} == {(torch.float32, True, True)}
+    assert [s[3] for s in seen] == ["edge"] * 2 + ["reflect"] * 14 + ["edge"] * 2
