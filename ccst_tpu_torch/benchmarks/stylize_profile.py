@@ -60,7 +60,8 @@ QUANTIZE_RANGE = "ccst::quantize_act"
 
 def write_tree(root: str, images_per_domain: int, size: int) -> None:
     """``PACS/kfold/{domain}/dog/img{i}.png`` (blocky seeded noise, ``size`` px)
-    and ``txt_lists/pacs/{domain}_train.txt`` lines ``<rel> 0``."""
+    and ``txt_lists/pacs/{domain}_train.txt`` lines ``<rel> <i mod 7>`` (the
+    labels spread over PACS's 7 classes for the training stage)."""
     import numpy as np
     from PIL import Image
 
@@ -79,7 +80,7 @@ def write_tree(root: str, images_per_domain: int, size: int) -> None:
         list_path = os.path.join(root, "txt_lists", "pacs", f"{d}_train.txt")
         os.makedirs(os.path.dirname(list_path), exist_ok=True)
         with open(list_path, "w") as f:
-            f.writelines(f"{rel} 0\n" for rel in rels)
+            f.writelines(f"{rel} {i % 7}\n" for i, rel in enumerate(rels))
 
 
 def run_cli(cli, argv) -> str:

@@ -13,6 +13,15 @@ flags and defaults; every subcommand also takes ``--device`` (default
                             [--skip-existing] [--output-size 96] ...
   ccst-tpu-torch reorganize --dataset pacs --target photo --list-root $DATA ...
   ccst-tpu-torch gen-lists  --dataset pacs --target photo --k 3 --list-root $DATA
+  ccst-tpu-torch amp-bank   --dataset pacs --domain cartoon --list-root $DATA
+  ccst-tpu-torch fed-train  --dataset pacs --target photo --mode fedavg \
+                            --fusion-mode adain-overall-K3 --network resnet50 ...
+  ccst-tpu-torch fed-test   --dataset pacs --target photo ... --checkpoint best [--tent]
+
+``fed-train`` trains the clients one after another on one device;
+``--parallel-clients``, ``--client-shards``, ``--data-shards`` and the
+multi-process flags are refused. ``fed-train --test-only`` evaluates the best
+checkpoint (``ccst-tpu`` accepts the flag there and trains anyway).
 
 ``calibrate`` writes the int8 scales file that ``stylize`` of either package
 picks up (``--scales PATH``, or the default path next to the style banks).
@@ -210,8 +219,67 @@ def cmd_split_data(args) -> int:
     return 0
 
 
+def cmd_amp_bank(args) -> int:
+    from ccst_tpu_torch.pipeline.amp_bank import compute_amp_bank
+
+    n = compute_amp_bank(
+        list_root=args.list_root, data_root=args.data_root, dataset=args.dataset,
+        domain=args.domain, image_size=args.image_size, out_root=args.out_root or args.list_root,
+    )
+    print(f"wrote {n} amplitude spectra for {args.domain}")
+    return 0
+
+
+def _fed_test(runner, which: str, tent: bool) -> int:
+    """``fed-test``: the target accuracy of checkpoint ``which``; with
+    ``tent``, before and after test-time adaptation."""
+    if not tent:
+        acc = runner.test_only(which)
+        print(f"target test accuracy: {acc:.4f}")
+        print(json.dumps({"checkpoint": which, "test_acc": acc}))
+        return 0
+    from ccst_tpu_torch.federated.tent import tent_test
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    state = runner.load_server(which)
+    with no_tf32():
+        _, pre = runner.evaluate(state, runner.test_loader)
+        print(f"pre-tent accuracy: {pre:.4f}")
+        _, acc = tent_test(runner.eval_model, state, runner.test_loader, runner.cfg.image_size,
+                           runner.batch_dict, logger=runner.logger)
+    print(f"tent accuracy: {acc:.4f}")
+    print(json.dumps({"checkpoint": which, "pre_tent_acc": pre, "tent_acc": acc}))
+    return 0
+
+
+def cmd_fed_train(args) -> int:
+    from ccst_tpu_torch.config import FedConfig
+    from ccst_tpu_torch.federated.runtime import FederatedRunner
+
+    cfg = _dataclass_from_args(FedConfig, args)
+    amp_bank = None
+    if cfg.dg_method.lower() == "feddg":
+        from ccst_tpu_torch.pipeline.amp_bank import load_amp_bank
+
+        amp_bank = load_amp_bank(args.list_root, cfg.dataset, cfg.source_domains,
+                                 max_per_domain=64)
+    runner = FederatedRunner(cfg, amp_bank=amp_bank, device=args.device)
+    if cfg.test_only:  # ccst-tpu accepts the flag on fed-train and trains anyway
+        return _fed_test(runner, "best", tent=False)
+    print(json.dumps(runner.run()))
+    return 0
+
+
+def cmd_fed_test(args) -> int:
+    from ccst_tpu_torch.config import FedConfig
+    from ccst_tpu_torch.federated.runtime import FederatedRunner
+
+    cfg = _dataclass_from_args(FedConfig, args)
+    return _fed_test(FederatedRunner(cfg, device=args.device), args.checkpoint, cfg.tent)
+
+
 def main(argv: Optional[list] = None) -> int:
-    from ccst_tpu_torch.config import StylizeConfig
+    from ccst_tpu_torch.config import FedConfig, StylizeConfig
 
     parser = argparse.ArgumentParser(prog="ccst-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -270,10 +338,28 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--tree-subdir", default="")
     p.set_defaults(fn=cmd_split_data)
 
+    p = sub.add_parser("amp-bank", help="precompute FedDG amplitude spectra")
+    for name, default in (
+        ("--dataset", "pacs"), ("--domain", ""), ("--list-root", ""),
+        ("--data-root", ""), ("--out-root", ""),
+    ):
+        p.add_argument(name, default=default)
+    p.add_argument("--image-size", type=int, default=222)
+    p.set_defaults(fn=cmd_amp_bank)
+
+    p = sub.add_parser("fed-train", help="federated training (clients in sequence)")
+    _add_dataclass_args(p, FedConfig)
+    p.set_defaults(fn=cmd_fed_train)
+
+    p = sub.add_parser("fed-test", help="evaluate a federated checkpoint")
+    _add_dataclass_args(p, FedConfig)
+    p.add_argument("--checkpoint", default="best", choices=["best", "latest"])
+    p.set_defaults(fn=cmd_fed_test)
+
     for p in sub.choices.values():
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu runs the plain versions; "
-                            "the list subcommands ignore it)")
+                            "the list subcommands and amp-bank ignore it)")
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,11 +1,15 @@
 """Typed configuration of the offline pipeline and the dataset registry.
 
 The package's own copy of ``ccst_tpu/config.py``, under the same names so a
-reader finds the counterpart: the dataset registry, ``StylizeConfig`` and
-``FusionConfig``. The federated-training and mesh configs are not copied; no
-module of this package trains. Field names, defaults and the registry's
-values equal the original's (``tests/test_torch_standalone.py`` holds them
-together), so lists, banks and outputs of either package feed the other.
+reader finds the counterpart: the dataset registry, ``StylizeConfig``,
+``FusionConfig``, ``FedConfig`` and the ImageNet normalization constants.
+``MeshConfig`` is not copied; the port has no device mesh yet. Field names,
+defaults and the registry's values equal the original's
+(``tests/test_torch_standalone.py`` holds them together), so lists, banks and
+outputs of either package feed the other. ``FedConfig`` keeps the original's
+fields that nothing reads (``momentum``: training is plain SGD;
+``random_horiz_flip``: the flip probability is fixed at 0.5) and its
+mesh / multi-process fields, which the port's CLI refuses.
 """
 from __future__ import annotations
 
@@ -74,6 +78,12 @@ def dataset_spec(name: str) -> DatasetSpec:
 # Configs
 # ---------------------------------------------------------------------------
 
+#: ImageNet normalization used by the training-side data layer
+#: (reference data/data_helper.py:21-31).
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
 @dataclass
 class StylizeConfig:
     """Config for the offline stylization pipeline (stages 1-2)."""
@@ -113,6 +123,71 @@ class FusionConfig:
     k: int = 3                        # styles sampled per image (K in the paper)
     seed: int = 1
     save_ext: str = ""                # must match the stylize stage's value
+
+
+@dataclass
+class FedConfig:
+    """Federated training config (reference federated/fed_run.py:457-505)."""
+
+    dataset: str = "pacs"
+    target: str = "art_painting"      # held-out test domain
+    mode: str = "fedavg"              # fedavg | fedbn | fedprox | adafea | deepall
+    fusion_mode: str = "no_fusion"    # no_fusion | adain-single-K{k} | adain-overall-K{k}
+    dg_method: str = "no_DG"          # no_DG | RSC | Jigsaw | MixStyle | feddg
+    network: str = "resnet18"
+    rounds: int = 500                 # communication rounds ("iters")
+    wk_iters: int = 1                 # local epochs per round
+    lr: float = 1e-2
+    momentum: float = 0.0             # reference uses plain SGD
+    batch_size: int = 32
+    image_size: int = 222
+    val_size: float = 0.1
+    seed: int = 1
+    mu: float = 1e-3                  # FedProx proximal weight
+    limit_data: float = 1.0           # fraction of each client's train list
+    # Jigsaw
+    jig_weight: float = 0.7
+    jigsaw_n_classes: int = 30
+    bias_whole_image: float = 0.9
+    # FedDG / ELCFS
+    meta_step_size: float = 1e-3
+    clip_value: float = 1.0
+    # transforms
+    min_scale: float = 0.8
+    max_scale: float = 1.0
+    random_horiz_flip: float = 0.5
+    # eval-time options
+    in_test: bool = False             # swap BN -> IN at test
+    tent: bool = False                # test-time entropy adaptation
+    # io
+    data_root: str = ""
+    list_root: str = ""
+    save_path: str = "checkpoints"
+    log_path: str = "logs"
+    trace_dir: str = ""               # jax.profiler trace output (off if "")
+    save_freq: int = 10
+    resume: bool = False
+    test_only: bool = False
+    # parallel execution
+    client_axis: str = "client"       # mesh axis clients shard over
+    data_axis: str = "data"           # mesh axis batches shard over
+    parallel_clients: bool = False    # one vmapped step for ALL clients
+    client_shards: int = 1            # mesh: client-axis size (1 = no mesh)
+    data_shards: int = 1              # mesh: data-axis size
+    # multi-process (DCN) launch — jax.distributed cluster formation
+    # (federated/multihost_runtime.py; env fallbacks CCST_COORDINATOR /
+    # CCST_NUM_PROCS / CCST_PROC_ID)
+    coordinator: str = ""             # e.g. "host0:1357"; "" = single-process
+    num_procs: int = 0                # 0 = single-process (or env/TPU auto)
+    proc_id: int = -1                 # -1 = env/TPU auto
+
+    @property
+    def spec(self) -> DatasetSpec:
+        return dataset_spec(self.dataset)
+
+    @property
+    def source_domains(self) -> Tuple[str, ...]:
+        return tuple(d for d in self.spec.domains if d != self.target)
 
 
 def asdict(cfg: Any) -> Dict[str, Any]:

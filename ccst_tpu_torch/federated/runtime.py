@@ -1,0 +1,306 @@
+"""Federated training runtime: round loop, evaluation, checkpoints.
+
+Counterpart of ``ccst_tpu/federated/runtime.py`` in its sequential mode (the
+reference's main loop, federated/fed_run.py:649-766):
+
+  round r in [resume, rounds):
+    - each client trains ``wk_iters`` local epochs from its current state
+      (fresh plain SGD each round, fed_run.py:657), one client after another;
+    - aggregate (fedavg / fedbn / fedprox / adafea / deepall) -> server and
+      refreshed clients;
+    - validate the server on every source client's val split, test it on the
+      held-out target domain;
+    - checkpoint ``latest`` every ``save_freq`` rounds; track ``best`` by mean
+      source-val accuracy with its target-test accuracy (fed_run.py:734-766).
+
+The state is seeded from ``cfg.seed`` and every round draws from a
+``torch.Generator`` seeded ``cfg.seed * 100003 + round_idx``, as the JAX
+runtime seeds its PRNG key. The two streams differ, so runs of the two
+packages agree in distribution, not bit for bit; with the random transform
+taken out they agree round for round (``tests/test_torch_federated.py``).
+Float32 throughout, with TF32 off on the card for the runner's calls.
+
+Kept gaps of the reference: ``resume`` restores ``best`` twice; ``momentum``
+and ``random_horiz_flip`` are not read. Clients run in sequence:
+``parallel_clients``, the mesh shards and the multi-process launch are not
+ported (ROADMAP Queue 1 item 8) and raise ``SystemExit``.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ccst_tpu_torch.config import FedConfig
+from ccst_tpu_torch.data.loader import Batch, ImageBatchLoader
+from ccst_tpu_torch.federated.aggregate import aggregate
+from ccst_tpu_torch.federated.data import ClientData, build_client_data
+from ccst_tpu_torch.federated.train_ops import make_eval_step, make_train_step
+from ccst_tpu_torch.models.classifiers import get_network, init_weights
+from ccst_tpu_torch.models.convert_resnet import from_jax
+from ccst_tpu_torch.utils.checkpoint import checkpoint_paths, load_checkpoint, save_checkpoint
+from ccst_tpu_torch.utils.metrics import MetricsLogger
+from ccst_tpu_torch.utils.precision import no_tf32
+
+State = Dict[str, torch.Tensor]
+
+
+def refuse_parallel(cfg: FedConfig) -> None:
+    """Only sequential clients on one device are ported."""
+    asked = [name for name, on in (
+        ("--parallel-clients", cfg.parallel_clients), ("--client-shards", cfg.client_shards > 1),
+        ("--data-shards", cfg.data_shards > 1), ("--coordinator", bool(cfg.coordinator)),
+        ("--num-procs", cfg.num_procs > 0)) if on]
+    if asked:
+        raise SystemExit(f"ccst-tpu-torch fed-train: {', '.join(asked)} not ported yet "
+                         "(ROADMAP Queue 1 item 8: parallel clients and multi-process); "
+                         "clients run in sequence on one device")
+
+
+def _as_state(tree: Dict[str, Any], device: torch.device) -> State:
+    """A checkpoint's state on ``device``: this package's state dict, or a
+    ``ccst-tpu`` {"params", "batch_stats"} tree."""
+    if "params" in tree:
+        tree = from_jax(tree["params"], tree.get("batch_stats", {}))
+    return {k: torch.as_tensor(v).to(device) for k, v in tree.items()}
+
+
+def _to_cpu(state: State) -> State:
+    return {k: v.detach().cpu() for k, v in state.items()}
+
+
+class FederatedRunner:
+    def __init__(
+        self,
+        cfg: FedConfig,
+        model: Optional[torch.nn.Module] = None,
+        clients: Optional[List[ClientData]] = None,
+        test_loader: Optional[ImageBatchLoader] = None,
+        amp_bank: Optional[np.ndarray] = None,
+        logger: Optional[MetricsLogger] = None,
+        device: Any = "cuda",
+    ):
+        refuse_parallel(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        spec = cfg.spec
+        gen = torch.Generator().manual_seed(cfg.seed)
+        if model is None:
+            model = init_weights(get_network(cfg.network, classes=spec.num_classes,
+                                             dg_method=cfg.dg_method), gen)
+        self.model = model.to(self.device)
+        if clients is None or test_loader is None:
+            clients, test_loader = build_client_data(cfg)
+        self.clients = clients
+        self.test_loader = test_loader
+        # deepall trains one pooled pseudo-client (clients[0]); the others
+        # only supply per-domain val splits
+        self.n_clients = 1 if cfg.mode.lower() == "deepall" else len(self.clients)
+        self.weights = [1.0 / self.n_clients] * self.n_clients  # fed_run.py:577
+        self.amp_bank = (None if amp_bank is None
+                         else torch.as_tensor(np.asarray(amp_bank, np.float32)).to(self.device))
+
+        self.run_name = (f"{cfg.dataset}_{cfg.target}_{cfg.mode}_{cfg.fusion_mode}_"
+                         f"{cfg.dg_method}_{cfg.network}_seed{cfg.seed}")
+        self.logger = logger or MetricsLogger(os.path.join(cfg.log_path, self.run_name + ".jsonl"))
+        self.ckpt = checkpoint_paths(cfg.save_path, self.run_name)
+
+        # the server, replicated to the clients (fed_run.py:579)
+        self.server: State = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        self.client_states: List[State] = [self._copy(self.server) for _ in range(self.n_clients)]
+
+        self._train_step = make_train_step(
+            self.model, n_classes=spec.num_classes, image_size=cfg.image_size, lr=cfg.lr,
+            dg_method=cfg.dg_method, mode=cfg.mode, mu=cfg.mu, jig_weight=cfg.jig_weight,
+            jigsaw_n_classes=cfg.jigsaw_n_classes, bias_whole_image=cfg.bias_whole_image,
+            meta_step_size=cfg.meta_step_size, clip_value=cfg.clip_value,
+            min_scale=cfg.min_scale, max_scale=cfg.max_scale,
+        )
+        # --in-test: every BatchNorm becomes an affine InstanceNorm that reuses
+        # the BN weight / bias under the same names (fed_run.py:218-232)
+        eval_model = self.model
+        if cfg.in_test:
+            if not hasattr(self.model, "with_norm"):
+                raise ValueError(f"--IN_test unsupported for {cfg.network}")
+            eval_model = self.model.with_norm("in").to(self.device)
+        self.eval_model = eval_model
+        self._eval_step = make_eval_step(eval_model, image_size=cfg.image_size)
+        self.start_round = 0
+        self.best: Dict[str, Any] = {"val_acc_mean": -1.0, "round": -1, "test_acc": None}
+
+    @staticmethod
+    def _copy(state: State) -> State:
+        return {k: v.clone() for k, v in state.items()}
+
+    @property
+    def client_names(self) -> List[str]:
+        return [c.name for c in self.clients]
+
+    def batch_dict(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """A loader batch on the device: uint8 images become ``x / 255`` there
+        (u8 transport: a quarter of the bytes; divided by a device scalar, the
+        same bits as JAX's division, where a Python divisor would become a
+        product with its reciprocal on the card), labels and the padding mask."""
+        dev = self.device
+        mask = (np.arange(batch.images.shape[0]) < batch.valid).astype(np.float32)
+        imgs = torch.from_numpy(np.ascontiguousarray(batch.images)).to(dev, non_blocking=True)
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / torch.full((), 255.0, device=dev)
+        return {
+            "images": imgs,
+            "labels": torch.from_numpy(batch.labels.astype(np.int64)).to(dev, non_blocking=True),
+            "mask": torch.from_numpy(mask).to(dev, non_blocking=True),
+        }
+
+    # ------------------------------------------------------------------
+    # local training
+    # ------------------------------------------------------------------
+
+    def train_client_epoch(self, ci: int, state: State, generator: torch.Generator
+                           ) -> Tuple[State, Dict[str, float]]:
+        """One local epoch; the metrics stay on the device until its end.
+        ``loader_wait_seconds`` is the host's time blocked on the loader."""
+        metrics = []
+        wait = 0.0
+        batches = iter(self.clients[ci].train)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            bd = self.batch_dict(batch)
+            if self.amp_bank is not None:
+                bd["amp_bank"] = self.amp_bank
+            state, m = self._train_step(state, self.server, bd, generator, len(metrics))
+            metrics.append(torch.stack([m.loss, m.correct, m.count]))
+        n_steps = len(metrics)
+        loss_sum, correct, count = (torch.stack(metrics).double().sum(0).tolist()
+                                    if metrics else (0.0, 0.0, 0.0))
+        return state, {"train_loss": loss_sum / max(n_steps, 1),
+                       "train_acc": correct / max(count, 1.0),
+                       "loader_wait_seconds": wait}
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def evaluate(self, state: State, loader: ImageBatchLoader) -> Tuple[float, float]:
+        """(mean loss, accuracy): ``test()`` (fed_run.py:214-259), one wait for
+        the device at the end."""
+        sums = [torch.stack(self._eval_step(state, self.batch_dict(b))) for b in loader]
+        if not sums:
+            return 0.0, 0.0
+        loss_sum, correct, count = torch.stack(sums).double().sum(0).tolist()
+        if count == 0:
+            return 0.0, 0.0
+        return loss_sum / count, correct / count
+
+    def server_eval_state(self) -> State:
+        """For fedbn the reference re-averages the clients' BN statistics into
+        the server to test it (test_fedbn, fed_run.py:350-381): ``aggregate``
+        already did, so this is the server."""
+        return self.server
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def resume(self) -> None:
+        if not os.path.exists(self.ckpt["latest"]):
+            return
+        payload = load_checkpoint(self.ckpt["latest"])
+        self.server = _as_state(payload["server"], self.device)
+        if self.cfg.mode.lower() == "fedbn" and "clients" in payload:
+            self.client_states = [_as_state(c, self.device) for c in payload["clients"]]
+        else:
+            # fedavg-family resume restarts the clients from the server
+            # (fed_run.py:627-640)
+            self.client_states = [self._copy(self.server) for _ in range(self.n_clients)]
+        if payload.get("best"):
+            self.best = dict(payload["best"])
+        self.start_round = int(payload["round"]) + 1
+        self.best = payload.get("best", self.best)  # the reference's second restore, kept
+        self.logger.log("resume", round=self.start_round)
+
+    def save(self, round_idx: int, best: bool = False) -> None:
+        payload: Dict[str, Any] = {"server": _to_cpu(self.server), "round": round_idx,
+                                   "best": dict(self.best)}
+        if self.cfg.mode.lower() == "fedbn":
+            payload["clients"] = [_to_cpu(c) for c in self.client_states]
+        save_checkpoint(self.ckpt["best" if best else "latest"], payload)
+
+    # ------------------------------------------------------------------
+    # round loop
+    # ------------------------------------------------------------------
+
+    def run_round(self, round_idx: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        gen = torch.Generator().manual_seed(cfg.seed * 100003 + round_idx)
+        train_metrics: Dict[str, Dict[str, float]] = {}
+        for _ in range(cfg.wk_iters):
+            for ci in range(self.n_clients):
+                self.client_states[ci], m = self.train_client_epoch(
+                    ci, self.client_states[ci], gen)
+                train_metrics[self.clients[ci].name] = m
+        self.server, self.client_states = aggregate(cfg.mode, self.client_states, self.weights)
+
+        eval_state = self.server_eval_state()
+        val_clients = self.clients if cfg.mode.lower() != "deepall" else self.clients[1:]
+        val_accs = [self.evaluate(eval_state, c.val)[1] for c in val_clients]
+        val_acc_mean = float(np.mean(val_accs)) if val_accs else 0.0
+        _, test_acc = self.evaluate(eval_state, self.test_loader)
+
+        record = {
+            "round": round_idx,
+            "val_acc_mean": val_acc_mean,
+            "test_acc": test_acc,
+            "seconds": time.perf_counter() - t0,
+            "loader_wait_seconds": sum(m["loader_wait_seconds"] for m in train_metrics.values()),
+            **{f"train_acc/{k}": v["train_acc"] for k, v in train_metrics.items()},
+            **{f"train_loss/{k}": v["train_loss"] for k, v in train_metrics.items()},
+        }
+        self.logger.log("round", **record)
+
+        # the best record is updated before save(latest), which embeds it
+        is_best = val_acc_mean > self.best["val_acc_mean"]
+        if is_best:
+            self.best = {"val_acc_mean": val_acc_mean, "round": round_idx, "test_acc": test_acc}
+        if round_idx % cfg.save_freq == 0 or round_idx == cfg.rounds - 1:
+            self.save(round_idx)
+        if is_best:
+            self.save(round_idx, best=True)
+            self.logger.log("best", **self.best)
+        return record
+
+    def run(self) -> Dict[str, Any]:
+        from ccst_tpu_torch.utils.profiling import maybe_trace
+
+        with no_tf32():
+            if self.cfg.resume:
+                self.resume()
+            with maybe_trace(self.cfg.trace_dir or None):
+                for r in range(self.start_round, self.cfg.rounds):
+                    self.run_round(r)
+        self.logger.log("done", **self.best)
+        return dict(self.best)
+
+    # ------------------------------------------------------------------
+    # test-only entry (fed_run.py:582-595)
+    # ------------------------------------------------------------------
+
+    def load_server(self, which: str = "best") -> State:
+        """The server state of checkpoint ``which`` (this package's, or a
+        ``ccst-tpu`` msgpack one) on the device."""
+        return _as_state(load_checkpoint(self.ckpt[which])["server"], self.device)
+
+    def test_only(self, which: str = "best") -> float:
+        self.server = self.load_server(which)
+        with no_tf32():
+            _, acc = self.evaluate(self.server_eval_state(), self.test_loader)
+        self.logger.log("test_only", checkpoint=which, test_acc=acc)
+        return acc

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import json
 import os
-from contextlib import contextmanager
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +54,7 @@ from ccst_tpu_torch.kernels.level1 import (
 from ccst_tpu_torch.kernels.qconv import QConvS, make_qconv, qconv3x3_s8
 from ccst_tpu_torch.models import vgg
 from ccst_tpu_torch.ops.adain import adain_from_stats, alpha_blend
+from ccst_tpu_torch.utils.precision import no_tf32
 
 # layers computed in packed space (the level-1 stage at image resolution)
 _PACKED_ENC = ("conv1_1", "conv1_2")
@@ -451,19 +451,6 @@ def apply_decoder_q8s_fused(prep: Dict, feat: torch.Tensor, dtype=torch.bfloat16
 # ---------------------------------------------------------------------------
 
 
-@contextmanager
-def _no_tf32():
-    """float32 convs and matmuls in full float32 on the card (cuDNN convs
-    default to TF32), restored afterwards."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def _conv_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Reflect-padded (3x3) or unpadded (1x1) float32 conv + bias, NHWC."""
     xn = x.permute(0, 3, 1, 2)
@@ -495,7 +482,7 @@ def calibrate_scales(
         c = enc["conv4_1"]["b"].shape[0]
         style_stats = [(np.zeros((c,), np.float32), np.ones((c,), np.float32))]
     scales: Dict[str, torch.Tensor] = {}
-    with _no_tf32():
+    with no_tf32():
         x = images.float()
         for layer in vgg.ENCODER_ARCH:
             if isinstance(layer, vgg.Conv):

@@ -51,7 +51,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ccst_tpu_torch.config import StylizeConfig, dataset_spec
 from ccst_tpu_torch.data.lists import parse_list, stylized_output_path, train_list_path
@@ -59,20 +58,12 @@ from ccst_tpu_torch.data.loader import ImageBatchLoader, load_image, save_image_
 from ccst_tpu_torch.kernels.adain import fused_adain, fused_adain_multi
 from ccst_tpu_torch.kernels.moments import channel_moments
 from ccst_tpu_torch.models import vgg, vgg_fast
+# the antialiased bilinear resize of output_size (jax.image.resize parity)
+from ccst_tpu_torch.ops.image import resize_square as resize_bilinear
 from ccst_tpu_torch.pipeline.style_bank import load_style_stats
 
 INT8_ENGINES = ("int8-static", "int8-fused")  # calibrated static scales
 ENGINES = ("ref", "packed", "int8", *INT8_ENGINES)
-
-
-def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
-    """Antialiased bilinear resize of (N, H, W, C) float images to (N, size,
-    size, C): ``ccst_tpu``'s ``jax.image.resize(..., "bilinear",
-    antialias=True)`` (torchvision Resize parity for downscaling, e.g.
-    camelyon17's 512 -> 96, CCST_OverallStyleTransfer.py:154)."""
-    x = F.interpolate(images.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return x.permute(0, 2, 3, 1).contiguous()
 
 
 class StylizeEngine:

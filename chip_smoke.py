@@ -75,6 +75,36 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      ``winograd_ab``, ``fused_pool_conv_ab --batch 32``) through their
      ``main()`` in this process, each with every launch count zeroed before it
      and read after it; the counts must be the ones its arguments imply.
+  7. the training stage, on phase 4's tree after its ``stylize``,
+     ``reorganize`` and ``gen-lists`` runs (it runs there, before phase 5):
+     ``gen-lists --k 3`` (the README quick start's ``adain-overall-K3``
+     lists; the tree's labels spread over PACS's 7 classes), then through the
+     CLI, each run a process of its own with ``--device cuda``: ``amp-bank``
+     for the three sources, ``fed-train --network resnet50 --mode fedavg
+     --rounds 2 --save-freq 1`` at ``FedConfig``'s widths (222 px, batch 32,
+     lr 1e-2, 7 classes, 3 clients in sequence, at least two local steps
+     each), one round each of fedbn, fedprox, adafea and deepall and of RSC,
+     Jigsaw, MixStyle and feddg, ``--resume`` to round 3 (it must start at
+     round 2), ``fed-test --checkpoint best`` (it must print exactly the
+     ``test_acc`` the log recorded for the best round), ``--in-test`` and
+     ``--tent``; every run must exit 0 and every logged loss be finite. Then
+     one local step on the card against the port's CPU path from the same
+     state with the same drawn crops and flips, float32 with TF32 off:
+     ResNet-50 with fedavg and fedprox (step 1), RSC, Jigsaw, MixStyle and
+     FedDG at ResNet-18 width, with the CPU's float64 step as the reference
+     of both; the loss within 1e-4 relative of the CPU's, ResNet-50's
+     train-mode logits within ``FED_LOGITS_ATOL`` of float64, every updated
+     leaf with median |d_card - d_64| at most 1e-3 max |d_64| (the ReLU-tie
+     rule of ``tests/test_train_equivalence.py``) or twice the CPU float32
+     step's own median distance, where float32 cannot meet that rule (BN
+     leaves, whose gradients cancel). Last the card's times: ms a local
+     step of ResNet-50 at batch 32 (CUDA events, median of runs after a
+     warm-up) and training img/s, eval img/s, the CLI run's seconds a round
+     and the share of it the host waited on the loader, and
+     ``torch.cuda.max_memory_allocated`` over the timed steps, all on a
+     ``fed`` JSON line with the card's name and power limit. No TPU kernel
+     lies on this path: the classifiers run cuDNN / cuBLAS / cuFFT through
+     ``torch.nn.functional`` and ``torch.fft``, as ``ccst_tpu`` runs XLA.
 
 The random decoder's last conv is rescaled (x12, bias +0.5) so that stylized
 outputs spread over [0, 1] as real ones do: the MAE bar is then 0.1% of the
@@ -86,7 +116,8 @@ near-constant.
 runs the same phases on a larger synthetic tree and batch, for the device
 rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
-The line before the last is a JSON object with one entry per kernel, whose
+Before the last two lines comes the ``fed`` JSON line of phase 7. The line
+before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the phase-4 main paths' counts (K2 decodes ``int8-fused``:
 on this card it is faster than the two K0 launches it replaces,
 ``replaces_chain_ms``) and,
@@ -868,6 +899,263 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
     print("edge shapes: B1, B2, B3 (every output-channel tile) equal their plain versions")
 
 
+# -- the training stage (phase 7) ----------------------------------------------
+
+FED_NET, FED_BATCH, FED_SIZE, FED_CLASSES = "resnet50", 32, 222, 7  # FedConfig's widths, PACS
+FED_FUSION = "adain-overall-K3"
+FED_LOSS_RTOL = 1e-4        # one local step's loss, card against CPU
+# a leaf's update on the card against the CPU's float64 step: median |d_card - d_64| at most
+# max(FED_DELTA_MEDIAN, FED_F32_FACTOR x the CPU float32 step's own distance) of max |d_64|.
+# The ReLU-tie rule alone (1e-3 of max |d|) is below float32's resolution for ResNet-50's BN
+# leaves at batch 32, whose gradients cancel: on this script's batch the CPU's own float32 step
+# misses it against its float64 step on 156 of 267 leaves (the card's step on the same 156)
+FED_DELTA_MEDIAN = 1e-3
+FED_F32_FACTOR = 2.0
+FED_LOGITS_ATOL = 5e-4      # train-mode logits of ResNet-50 against the CPU's float64 (seen 3.0e-5)
+# one local step on the card against the port's CPU path: ResNet-50 with
+# fedavg and fedprox, each DG plugin at ResNet-18 width (fedavg)
+FED_STEP_CASES = (("resnet50", "no_DG", "fedavg"), ("resnet50", "no_DG", "fedprox"),
+                  ("resnet18", "RSC", "fedavg"), ("resnet18", "Jigsaw", "fedavg"),
+                  ("resnet18", "MixStyle", "fedavg"), ("resnet18", "feddg", "fedavg"))
+
+
+def fed_batch(torch, root, dev, dtype):
+    """The first FED_BATCH entries of cartoon's K3 list at FED_SIZE (uint8), as
+    the runner hands them to a step on ``dev``, in ``dtype``."""
+    from ccst_tpu_torch.data.lists import parse_list, train_list_path
+    from ccst_tpu_torch.data.loader import ImageBatchLoader
+
+    names, labels = parse_list(train_list_path(root, "pacs", "cartoon", fusion_dir=FED_FUSION,
+                                               target="photo"))
+    loader = ImageBatchLoader([os.path.join(root, n) for n in names[:FED_BATCH]],
+                              labels[:FED_BATCH], batch_size=FED_BATCH, image_size=FED_SIZE,
+                              out_dtype="uint8")
+    batch = next(iter(loader))
+    images = (torch.from_numpy(batch.images).to(dev).to(dtype)
+              / torch.full((), 255.0, device=dev, dtype=dtype))
+    return {"images": images, "labels": torch.from_numpy(batch.labels.astype("int64")).to(dev),
+            "mask": torch.ones(FED_BATCH, device=dev, dtype=dtype)}
+
+
+def check_fed_steps(torch, dev, root, bank):
+    """Tentpole C.1: one local step on the card against the port's CPU path
+    (float32, and float64 as the reference of both), from the same state with
+    the same drawn crops and flips (the draws come from a host generator
+    seeded alike)."""
+    from ccst_tpu_torch.federated.train_ops import forward, make_train_step
+    from ccst_tpu_torch.models.classifiers import get_network, init_weights
+    from ccst_tpu_torch.ops.image import train_transform
+
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    runs = ((dev, f32), (cpu, f32), (cpu, f64))
+    batches = {run: fed_batch(torch, root, *run) for run in runs}
+    report, failures = {}, []
+    for net, dg, mode in FED_STEP_CASES:
+        tag = f"{net} {dg} {mode}"
+        model = init_weights(get_network(net, FED_CLASSES, dg), torch.Generator().manual_seed(0))
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        noise = torch.Generator().manual_seed(1)
+        server = {k: (v + 0.01 * torch.randn(v.shape, generator=noise)) if v.is_floating_point()
+                  else v.clone() for k, v in state.items()}
+        step = make_train_step(model, n_classes=FED_CLASSES, image_size=FED_SIZE, lr=1e-2,
+                               dg_method=dg, mode=mode)
+        out = {}
+        for d, dt in runs:
+            model.to(d, dt)
+            cast = lambda t: t.to(d, dt) if t.is_floating_point() else t.to(d)
+            bd = dict(batches[d, dt])
+            if dg == "feddg":
+                bd["amp_bank"] = torch.from_numpy(bank).to(d, dt)
+            new, m = step({k: cast(v) for k, v in state.items()},
+                          {k: cast(v) for k, v in server.items()}, bd,
+                          torch.Generator().manual_seed(7), 1)
+            logits = None
+            if (net, dg, mode) == FED_STEP_CASES[0]:
+                with torch.no_grad():
+                    x = train_transform(torch.Generator().manual_seed(7), bd["images"], FED_SIZE)
+                    # copies: the train-mode forward updates the running statistics in place
+                    logits = forward(model, {k: cast(v).clone() for k, v in state.items()}, x,
+                                     True).double().cpu()
+            out[d, dt] = ({k: v.double().cpu() for k, v in new.items()}, float(m.loss), logits)
+        (card, l_card, g_card), (c32, l_32, g_32), (c64, l_64, g_64) = (out[r] for r in runs)
+        row = {"loss_card": l_card, "loss_cpu32": l_32, "loss_cpu64": l_64,
+               "loss_rel_err": abs(l_card - l_32) / abs(l_32)}
+        if not math.isfinite(l_card) or row["loss_rel_err"] > FED_LOSS_RTOL:
+            failures.append(f"{tag}: loss {l_card} on the card, {l_32} on the CPU")
+        leaves = []
+        for k, old in state.items():
+            if not old.is_floating_point():
+                if not torch.equal(card[k], c32[k]):
+                    failures.append(f"{tag}: {k} {int(card[k])} != {int(c32[k])}")
+                continue
+            d64 = c64[k] - old.double()
+            scale = d64.abs().max().item()
+            if scale == 0.0:
+                if (card[k] - old.double()).abs().max().item() != 0.0:
+                    failures.append(f"{tag}: {k} moved on the card only")
+                continue
+            e_card = ((card[k] - c64[k]).abs().median().item()) / scale
+            e_cpu = ((c32[k] - c64[k]).abs().median().item()) / scale
+            e_pair = ((card[k] - c32[k]).abs().median().item()) / scale
+            leaves.append((e_card / max(e_cpu, 1e-30), k, e_card, e_cpu, e_pair))
+            if not e_card <= max(FED_DELTA_MEDIAN, FED_F32_FACTOR * e_cpu):
+                failures.append(f"{tag}: {k} median |d_card - d_64| {e_card:.3e} of max |d_64| "
+                                f"(the CPU's float32 {e_cpu:.3e})")
+        leaves.sort(reverse=True)
+        row.update(leaves=len(leaves),
+                   worst_card_vs_64=max(e for _, _, e, _, _ in leaves),
+                   worst_cpu32_vs_64=max(e for _, _, _, e, _ in leaves),
+                   worst_card_vs_cpu32=max(e for _, _, _, _, e in leaves),
+                   card_vs_cpu32_over_1e3=sum(e > 1e-3 for _, _, _, _, e in leaves),
+                   cpu32_vs_64_over_1e3=sum(e > 1e-3 for _, _, _, e, _ in leaves),
+                   worst_leaves=[(k, e_card, e_cpu) for _, k, e_card, e_cpu, _ in leaves[:3]])
+        if g_card is not None:
+            row.update(logits_card_vs_64=(g_card - g_64).abs().max().item(),
+                       logits_card_vs_cpu32=(g_card - g_32).abs().max().item(),
+                       logits_cpu32_vs_64=(g_32 - g_64).abs().max().item())
+            if not row["logits_card_vs_64"] <= FED_LOGITS_ATOL:
+                failures.append(f"{tag}: logits {row['logits_card_vs_64']:.3e} off the CPU's "
+                                f"float64 > {FED_LOGITS_ATOL}")
+        report[tag] = row
+        print(f"fed step {tag} ({FED_BATCH} x {FED_SIZE}px, TF32 off): loss card {l_card:.6f} cpu "
+              f"float32 {l_32:.6f} float64 {l_64:.6f}; worst leaf median |d - d_64| / max |d_64|: "
+              f"card {row['worst_card_vs_64']:.2e}, CPU float32 {row['worst_cpu32_vs_64']:.2e}; "
+              f"card vs CPU float32 over 1e-3 on {row['card_vs_cpu32_over_1e3']} of {len(leaves)} "
+              f"leaves (CPU float32 vs float64: {row['cpu32_vs_64_over_1e3']}); worst by ratio "
+              f"{row['worst_leaves']}"
+              + (f"; logits card - float64 {row['logits_card_vs_64']:.2e}, CPU float32 - float64 "
+                 f"{row['logits_cpu32_vs_64']:.2e}" if g_card is not None else ""))
+    if failures:
+        fail("fed steps:\n  " + "\n  ".join(failures[:40]))
+    return report
+
+
+def time_fed_step(torch, dev, root):
+    """Tentpole C.3, in this process: one fedavg local step of ResNet-50 at
+    batch 32 and 222 px (CUDA events, median of runs after a warm-up) and one
+    eval step, and the peak of device memory over them."""
+    from ccst_tpu_torch.federated.train_ops import make_eval_step, make_train_step
+    from ccst_tpu_torch.models.classifiers import get_network, init_weights
+
+    model = init_weights(get_network(FED_NET, FED_CLASSES), torch.Generator().manual_seed(0)).to(dev)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    bd = fed_batch(torch, root, dev, torch.float32)
+    step = make_train_step(model, n_classes=FED_CLASSES, image_size=FED_SIZE, lr=1e-2)
+    evaluate = make_eval_step(model, image_size=FED_SIZE)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], state, bd, gen, 0)
+
+    step_ms = time_ms(torch, one_step, reps=5, runs=5)
+    eval_ms = time_ms(torch, lambda: evaluate(holder[0], bd), reps=5, runs=5)
+    peak = torch.cuda.max_memory_allocated()
+    return {"step_ms": step_ms, "train_img_s": FED_BATCH / (step_ms * 1e-3), "eval_ms": eval_ms,
+            "eval_img_s": FED_BATCH / (eval_ms * 1e-3), "max_memory_allocated_bytes": peak}
+
+
+def run_fed_cli(root, images_per_domain):
+    """Tentpole C.2: the chain's training end through the CLI, each run a
+    process of its own on the card; returns the fedavg run's round records and
+    each run's wall seconds."""
+    from ccst_tpu_torch.data.lists import parse_list, test_list_path, train_list_path
+    from ccst_tpu_torch.utils.metrics import read_rounds
+
+    # the target's test list: the photo domain's originals
+    names, labels = parse_list(train_list_path(root, "pacs", "photo"))
+    with open(test_list_path(root, "pacs", "photo"), "w") as f:
+        f.writelines(f"{n} {l}\n" for n, l in zip(names, labels))
+    out = os.path.join(root, "fed")
+    common = ["--dataset", "pacs", "--target", "photo", "--fusion-mode", FED_FUSION,
+              "--network", FED_NET, "--list-root", root, "--data-root", root,
+              "--save-path", os.path.join(out, "ckpt"), "--log-path", os.path.join(out, "logs"),
+              "--device", "cuda"]
+    seconds = {}
+
+    def cli(name, *argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ccst_tpu_torch.cli", *argv], cwd=HERE,
+                              capture_output=True, text=True, timeout=900)
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{name} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        print(f"{name}: exit 0 in {seconds[name]:.1f} s; {proc.stdout.strip().splitlines()[-1]}")
+        return proc.stdout
+
+    def rounds_of(mode, dg="no_DG"):
+        log = os.path.join(out, "logs", f"pacs_photo_{mode}_{FED_FUSION}_{dg}_{FED_NET}_seed1.jsonl")
+        recs = read_rounds(log)
+        for r in recs:
+            if r["event"] == "round" and not all(math.isfinite(v) for k, v in r.items()
+                                                 if k.startswith("train_loss/")):
+                fail(f"fed-train {mode} {dg}: a non-finite loss in {r}")
+        return recs
+
+    for d in DOMAINS:
+        if d != "photo":
+            cli(f"amp-bank {d}", "amp-bank", "--dataset", "pacs", "--domain", d, "--list-root",
+                root, "--data-root", root, "--image-size", str(FED_SIZE))
+    cli("fed-train fedavg", "fed-train", *common, "--mode", "fedavg", "--rounds", "2",
+        "--save-freq", "1")
+    for mode in ("fedbn", "fedprox", "adafea", "deepall"):
+        cli(f"fed-train {mode}", "fed-train", *common, "--mode", mode, "--rounds", "1")
+        rounds_of(mode)
+    for dg in ("RSC", "Jigsaw", "MixStyle", "feddg"):
+        cli(f"fed-train {dg}", "fed-train", *common, "--dg-method", dg, "--rounds", "1")
+        rounds_of("fedavg", dg)
+    printed = cli("fed-train fedavg --resume", "fed-train", *common, "--mode", "fedavg",
+                  "--rounds", "3", "--save-freq", "1", "--resume")
+    if "[resume] round=2" not in printed:
+        fail("fed-train --resume did not start at round 2")
+    recs = rounds_of("fedavg")
+    rounds = [r for r in recs if r["event"] == "round"]
+    if [r["round"] for r in rounds] != [0, 1, 2]:
+        fail(f"fed-train fedavg logged rounds {[r['round'] for r in rounds]}, expected 0, 1, 2")
+    best = [r for r in recs if r["event"] == "done"][-1]
+    tested = json.loads(cli("fed-test best", "fed-test", *common, "--checkpoint", "best")
+                        .strip().splitlines()[-1])
+    if tested["test_acc"] != best["test_acc"]:
+        fail(f"fed-test --checkpoint best printed test_acc {tested['test_acc']}, the log's best "
+             f"round {best['round']} recorded {best['test_acc']}")
+    print(f"fed-test --checkpoint best: test_acc {tested['test_acc']} = the log's best round "
+          f"{best['round']}")
+    cli("fed-test --in-test", "fed-test", *common, "--in-test")
+    cli("fed-test --tent", "fed-test", *common, "--tent")
+    # at least two local steps a client at batch 32 (the K3 lists hold 3 entries an image)
+    n_list = 3 * images_per_domain
+    if -(-(n_list - int(n_list * 0.1)) // FED_BATCH) < 2:
+        fail(f"{images_per_domain} images a domain give each client one local step")
+    return rounds, seconds
+
+
+def run_fed_phase(torch, dev, root, smi, images_per_domain):
+    """Phase 7 on phase 4's tree, after its stylize, reorganize and gen-lists
+    --k 3 runs: C.2 the CLI chain (``amp-bank`` first), C.1 the local step on
+    the card against the CPU, C.3 the card's times. Returns the ``fed`` line."""
+    from ccst_tpu_torch.pipeline.amp_bank import load_amp_bank
+
+    t0 = time.perf_counter()
+    rounds, seconds = run_fed_cli(root, images_per_domain)
+    bank = load_amp_bank(root, "pacs", [d for d in DOMAINS if d != "photo"], max_per_domain=64)
+    steps = check_fed_steps(torch, dev, root, bank)
+    times = time_fed_step(torch, dev, root)
+    print(f"fed step on the card (ResNet-50, {FED_BATCH} x {FED_SIZE}px, float32, TF32 off): "
+          f"{times['step_ms']:.2f} ms = {times['train_img_s']:.1f} img/s; eval "
+          f"{times['eval_ms']:.2f} ms = {times['eval_img_s']:.1f} img/s; peak device memory "
+          f"{times['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    return {"card": smi, "network": FED_NET, "batch": FED_BATCH, "image_size": FED_SIZE,
+            "classes": FED_CLASSES, "fusion_mode": FED_FUSION, "precision": "float32, TF32 off",
+            **times,
+            "round_seconds": [r["seconds"] for r in rounds],
+            "round_loader_wait_seconds": [r["loader_wait_seconds"] for r in rounds],
+            "loader_wait_share": [r["loader_wait_seconds"] / r["seconds"] for r in rounds],
+            "cli_seconds": seconds, "step_checks": steps,
+            "phase_seconds": time.perf_counter() - t0}
+
+
 def run_harnesses(torch, counters):
     """Phase 6: the three int8 A/B harnesses in this process, each with every
     launch count zeroed before it and read after it; the counts must be the
@@ -900,7 +1188,7 @@ def run_harnesses(torch, counters):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--images-per-domain", type=int, default=8)
+    ap.add_argument("--images-per-domain", type=int, default=12)
     ap.add_argument("--batch-size", type=int, default=4)
     args = ap.parse_args()
     images_per_domain, batch = args.images_per_domain, args.batch_size
@@ -1255,6 +1543,12 @@ def main() -> int:
                 fail(f"{step} did not write {missing}")
             if step == "reorganize" and f"placed {3 * 3 * images_per_domain} files" not in printed:
                 fail(f"reorganize placed another count: {printed.strip()}")
+
+        # -- 7. the training stage on this tree: the K3 lists of the README's
+        # quick start, then fed-train / fed-test through the CLI on the card
+        run_step("gen-lists --k 3", ["gen-lists", "--dataset", "pacs", "--target", "photo",
+                                     "--list-root", root, "--k", "3", "--device", "cuda"], {})
+        fed = run_fed_phase(torch, dev, root, smi, images_per_domain)
 
         for d in DOMAINS:
             mean, std = load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
@@ -1659,6 +1953,7 @@ def main() -> int:
             **({"shapes": per_shape} if per_shape else {}),
         })
     print(f"wall: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
+    print(json.dumps({"fed": fed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
 """ccst_tpu_torch stands alone: it imports nothing of ccst_tpu and nothing of
-JAX, and its own copies of the framework-free modules (config, data.lists,
-data.loader, native) behave as the originals do.
+JAX (nor flax, optax, triton or msgpack), and its own copies of the
+framework-free modules (config, data.lists, data.loader, native,
+federated.data, pipeline.amp_bank, utils.metrics, the Jigsaw permutation
+asset) behave as the originals do.
 
 Only this test file imports both packages. The copies are held to the
 originals exactly: same dataclass fields and defaults, same registry, same
@@ -54,20 +56,25 @@ def test_port_has_sources_to_walk():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {"chip_smoke.py", "ccst_tpu_torch/cli.py", "ccst_tpu_torch/config.py",
             "ccst_tpu_torch/data/lists.py", "ccst_tpu_torch/data/loader.py",
-            "ccst_tpu_torch/native/__init__.py", "ccst_tpu_torch/pipeline/stylize.py"} <= names
+            "ccst_tpu_torch/native/__init__.py", "ccst_tpu_torch/pipeline/stylize.py",
+            "ccst_tpu_torch/federated/runtime.py", "ccst_tpu_torch/federated/data.py",
+            "ccst_tpu_torch/pipeline/amp_bank.py", "ccst_tpu_torch/utils/metrics.py",
+            "ccst_tpu_torch/utils/checkpoint.py", "ccst_tpu_torch/models/classifiers.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_ccst_tpu_or_jax(path):
-    # nor triton: every kernel of the port is CUDA C++ under csrc/
-    banned = _imported_roots(path) & {"ccst_tpu", "jax", "jaxlib", "flax", "optax", "triton"}
+    # nor triton: every kernel of the port is CUDA C++ under csrc/; nor msgpack:
+    # the card's machine has none (utils/checkpoint.py reads flax's msgpack itself)
+    banned = _imported_roots(path) & {"ccst_tpu", "jax", "jaxlib", "flax", "optax", "triton",
+                                      "msgpack"}
     assert not banned, f"{os.path.relpath(path, REPO)} imports {sorted(banned)}"
 
 
 # ---- config ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["StylizeConfig", "FusionConfig", "DatasetSpec"])
+@pytest.mark.parametrize("name", ["StylizeConfig", "FusionConfig", "FedConfig", "DatasetSpec"])
 def test_config_dataclass_fields_and_defaults(name):
     def describe(cls):
         return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
@@ -80,6 +87,15 @@ def test_dataset_spec_equals_original(name):
     ours, theirs = tconfig.dataset_spec(name), jconfig.dataset_spec(name.upper())
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert sorted(tconfig.DATASETS) == sorted(jconfig.DATASETS)
+
+
+def test_fed_config_properties_and_constants_equal_original():
+    for target in ("photo", "sketch"):
+        ours, theirs = tconfig.FedConfig(target=target), jconfig.FedConfig(target=target)
+        assert ours.source_domains == theirs.source_domains
+        assert dataclasses.asdict(ours.spec) == dataclasses.asdict(theirs.spec)
+    assert (tconfig.IMAGENET_MEAN, tconfig.IMAGENET_STD) == (jconfig.IMAGENET_MEAN,
+                                                            jconfig.IMAGENET_STD)
 
 
 def test_dataset_spec_rejects_unknown_names():
@@ -269,6 +285,87 @@ def test_native_tier_is_the_ports_own():
     # the code is the original's; only the header comment names the new home
     assert ours[ours.index("#include"):] == theirs[theirs.index("#include"):]
     assert isinstance(tnative.available(), bool)
+
+
+# ---- the training stage's copies ------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["fedavg", "deepall"])
+def test_client_data_equals_original(tree, mode):
+    """federated/data.py: the crc32-seeded val split, limit_data, the deepall
+    pseudo-client and the uint8 batches of every loader."""
+    import ccst_tpu.federated.data as jdata
+    import ccst_tpu_torch.federated.data as tdata
+
+    for d in DOMAINS:  # the test lists the target's loader reads
+        src = os.path.join(tree, "txt_lists", "pacs", f"{d}_train.txt")
+        dst = os.path.join(tree, "txt_lists", "pacs", f"{d}_test.txt")
+        if not os.path.exists(dst):
+            jlists.write_list(dst, *jlists.parse_list(src))
+    kw = dict(dataset="pacs", target="photo", mode=mode, list_root=tree, data_root=tree,
+              batch_size=2, image_size=24, val_size=0.34, limit_data=0.8, seed=3)
+    ours, ours_test = tdata.build_client_data(tconfig.FedConfig(**kw))
+    theirs, theirs_test = jdata.build_client_data(jconfig.FedConfig(**kw))
+    assert [c.name for c in ours] == [c.name for c in theirs]
+    pairs = [(a.train, b.train) for a, b in zip(ours, theirs)]
+    pairs += [(a.val, b.val) for a, b in zip(ours, theirs)] + [(ours_test, theirs_test)]
+    for a, b in zip(ours, theirs):
+        assert (a.n_train, a.n_val) == (b.n_train, b.n_val)
+    for la, lb in pairs:
+        assert la.paths == lb.paths and list(la.labels) == list(lb.labels)
+        for ba, bb in zip(la, lb):
+            assert ba.images.dtype == bb.images.dtype == np.uint8
+            np.testing.assert_array_equal(ba.images, bb.images)
+            assert ba.valid == bb.valid
+
+
+def test_amp_bank_equals_original(tree, tmp_path):
+    import ccst_tpu.pipeline.amp_bank as jamp
+    import ccst_tpu_torch.pipeline.amp_bank as tamp
+
+    assert tamp.amp_path("PACS/kfold/photo/dog/a.jpg") == jamp.amp_path("PACS/kfold/photo/dog/a.jpg")
+    for tag, mod in (("ours", tamp), ("theirs", jamp)):
+        assert mod.compute_amp_bank(list_root=tree, data_root=tree, dataset="pacs",
+                                    domain="cartoon", image_size=20,
+                                    out_root=str(tmp_path / tag)) == 6
+    files = _tree_files(str(tmp_path / "ours"))
+    assert files == _tree_files(str(tmp_path / "theirs")) and len(files) == 6
+    for rel in files:
+        assert filecmp.cmp(str(tmp_path / "ours" / rel), str(tmp_path / "theirs" / rel),
+                           shallow=False)
+    kw = dict(max_per_domain=4, data_root=tree, image_size=20, seed=2)
+    np.testing.assert_array_equal(tamp.load_amp_bank(tree, "pacs", ["cartoon", "sketch"], **kw),
+                                  jamp.load_amp_bank(tree, "pacs", ["cartoon", "sketch"], **kw))
+
+
+def test_metrics_logger_and_summaries_equal_original(tmp_path, capsys):
+    import ccst_tpu.utils.metrics as jm
+    import ccst_tpu_torch.utils.metrics as tm
+
+    paths = {}
+    for tag, mod in (("ours", tm), ("theirs", jm)):
+        path = str(tmp_path / tag / "run.jsonl")
+        logger = mod.MetricsLogger(path)
+        for r, (val, test) in enumerate(((0.2, 0.5), (0.6, 0.4), (0.6, 0.9))):
+            logger.log("round", round=r, val_acc_mean=val, test_acc=test)
+        logger.log_histogram("w", np.arange(10.0), step=1, bins=4)
+        logger.close()
+        paths[tag] = path
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[:3] == printed[3:]
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "time"} for r in recs]
+    assert strip(tm.read_rounds(paths["ours"])) == strip(jm.read_rounds(paths["theirs"]))
+    assert tm.summarize_many([paths["ours"]], 3) == jm.summarize_many([paths["theirs"]], 3)
+    assert tm.summarize_run(paths["ours"])["test_acc_at_best_val"] == 0.4
+
+
+def test_jigsaw_permutations_are_the_ports_own_copy():
+    import ccst_tpu.data.jigsaw as jjig
+    import ccst_tpu_torch.data.jigsaw as tjig
+
+    ours = os.path.join(os.path.dirname(tjig.__file__), "assets", "permutations_30.npy")
+    theirs = os.path.join(os.path.dirname(jjig.__file__), "assets", "permutations_30.npy")
+    assert ours != theirs and filecmp.cmp(ours, theirs, shallow=False)
 
 
 # ---- the CLI in a process of its own ---------------------------------------
