@@ -5,7 +5,8 @@ and one eval step, timed, then traced.
         [--network resnet50] [--batch 32] [--size 222] [--steps 5] [--device cuda|cpu]
 
 With seeded random weights (``init_weights``) and a seeded random uint8
-batch, fedavg, float32 with TF32 off (the runner's numerics), it
+batch, fedavg, float32 with TF32 off and cuDNN's deterministic algorithms
+(the runner's numerics), it
 
   1. times ``--steps`` train steps and as many eval steps (CUDA events after
      two warm-up steps; the median of five runs);
@@ -112,7 +113,7 @@ def main(argv=None) -> int:
                 times.append((time.perf_counter() - t0) * 1e3 / args.steps)
         return sorted(times)[len(times) // 2]
 
-    with no_tf32():
+    with no_tf32(deterministic=True):
         if on_cuda:
             torch.cuda.reset_peak_memory_stats()
         step_ms = timed(train)
@@ -139,7 +140,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     result = {
         "card": info, "torch": torch.__version__, "network": args.network,
-        "batch": args.batch, "size": args.size, "precision": "float32, TF32 off",
+        "batch": args.batch, "size": args.size,
+        "precision": "float32, TF32 off, cuDNN deterministic",
         "step_ms": step_ms, "train_img_s": args.batch / (step_ms * 1e-3),
         "eval_ms": eval_ms, "eval_img_s": args.batch / (eval_ms * 1e-3),
         "traced_steps": args.steps, "traced_wall_ms_a_step": traced_ms,

@@ -18,10 +18,26 @@ flags and defaults; every subcommand also takes ``--device`` (default
                             --fusion-mode adain-overall-K3 --network resnet50 ...
   ccst-tpu-torch fed-test   --dataset pacs --target photo ... --checkpoint best [--tent]
 
-``fed-train`` trains the clients one after another on one device;
+``fed-train`` trains the clients one after another on one device, with cuDNN's
+deterministic algorithms unless ``--nondeterministic`` is given (also on
+``fed-test``);
 ``--parallel-clients``, ``--client-shards``, ``--data-shards`` and the
 multi-process flags are refused. ``fed-train --test-only`` evaluates the best
 checkpoint (``ccst-tpu`` accepts the flag there and trains anyway).
+
+  ccst-tpu-torch train-decoder --dataset pacs --domains art_painting,cartoon,sketch ...
+  ccst-tpu-torch invert-train --dataset pacs --source art_painting --loss mse+perceptual ...
+  ccst-tpu-torch invert-eval  --dataset pacs --source art_painting [--overall] [--holdout] \
+                              [--lpips-vgg vgg16.pth --lpips-lin lin.pth]
+  ccst-tpu-torch gan-train    --dataset pacs --source art_painting --gp-weight 10 \
+                              --attn-res 32 --fid-samples 64
+
+``train-decoder`` writes the decoder ``.npz`` that ``ccst-tpu stylize
+--decoder-weights`` also reads; ``invert-eval`` reads ``ccst-tpu
+invert-train``'s checkpoints as well as its own. The four train on one device
+in one process: ``invert-train``'s ``--coordinator`` / ``--num-procs`` are
+refused; ``gan-train`` writes its state dicts to ``gan_{dataset}_{source}.pt``
+(``ccst-tpu`` writes ``.msgpack``).
 
 ``calibrate`` writes the int8 scales file that ``stylize`` of either package
 picks up (``--scales PATH``, or the default path next to the style banks).
@@ -242,7 +258,7 @@ def _fed_test(runner, which: str, tent: bool) -> int:
     from ccst_tpu_torch.utils.precision import no_tf32
 
     state = runner.load_server(which)
-    with no_tf32():
+    with no_tf32(runner.deterministic):
         _, pre = runner.evaluate(state, runner.test_loader)
         print(f"pre-tent accuracy: {pre:.4f}")
         _, acc = tent_test(runner.eval_model, state, runner.test_loader, runner.cfg.image_size,
@@ -263,7 +279,8 @@ def cmd_fed_train(args) -> int:
 
         amp_bank = load_amp_bank(args.list_root, cfg.dataset, cfg.source_domains,
                                  max_per_domain=64)
-    runner = FederatedRunner(cfg, amp_bank=amp_bank, device=args.device)
+    runner = FederatedRunner(cfg, amp_bank=amp_bank, device=args.device,
+                             deterministic=not args.nondeterministic)
     if cfg.test_only:  # ccst-tpu accepts the flag on fed-train and trains anyway
         return _fed_test(runner, "best", tent=False)
     print(json.dumps(runner.run()))
@@ -275,7 +292,126 @@ def cmd_fed_test(args) -> int:
     from ccst_tpu_torch.federated.runtime import FederatedRunner
 
     cfg = _dataclass_from_args(FedConfig, args)
-    return _fed_test(FederatedRunner(cfg, device=args.device), args.checkpoint, cfg.tent)
+    runner = FederatedRunner(cfg, device=args.device, deterministic=not args.nondeterministic)
+    return _fed_test(runner, args.checkpoint, cfg.tent)
+
+
+def cmd_train_decoder(args) -> int:
+    from ccst_tpu_torch.pipeline.train_decoder import DecoderTrainConfig, train_decoder
+
+    cfg = DecoderTrainConfig(
+        dataset=args.dataset,
+        content_domain=args.content_domain,
+        style_domain=args.style_domain,
+        list_root=args.list_root,
+        data_root=args.data_root,
+        image_size=args.image_size,
+        batch_size=args.batch_size,
+        steps=args.steps,
+        lr=args.lr,
+        style_weight=args.style_weight,
+        seed=args.seed,
+        vgg_weights=args.vgg_weights,
+        init_decoder=args.init_decoder,
+        domains=args.domains,
+        out_path=args.out_path,
+    )
+    print(json.dumps(train_decoder(cfg, device=args.device)))
+    return 0
+
+
+def cmd_invert_train(args) -> int:
+    from ccst_tpu_torch.privacy.invert import InvertConfig, train_inverter
+
+    cfg = InvertConfig(
+        dataset=args.dataset, source=args.source, list_root=args.list_root,
+        data_root=args.data_root, image_size=args.image_size, batch_size=args.batch_size,
+        steps=args.steps, lr=args.lr, seed=args.seed, out_dir=args.out_dir,
+        vgg_weights=args.vgg_weights, loss=args.loss, perc_weight=args.perc_weight,
+        coordinator=args.coordinator, num_procs=args.num_procs, proc_id=args.proc_id,
+    )
+    print(json.dumps(train_inverter(cfg, device=args.device)))
+    return 0
+
+
+def cmd_invert_eval(args) -> int:
+    from ccst_tpu_torch.privacy.invert import InvertConfig, evaluate_inverter
+
+    cfg = InvertConfig(
+        dataset=args.dataset, source=args.source, list_root=args.list_root,
+        data_root=args.data_root, image_size=args.image_size, batch_size=args.batch_size,
+        seed=args.seed, out_dir=args.out_dir, vgg_weights=args.vgg_weights,
+        lpips_vgg=args.lpips_vgg, lpips_lin=args.lpips_lin,
+        style_stats_dir=args.style_stats_dir,
+    )
+    report = evaluate_inverter(cfg, target=args.target, overall=args.overall,
+                               holdout=args.holdout, device=args.device)
+    print(json.dumps(report))
+    return 0
+
+
+def cmd_gan_train(args) -> int:
+    """Train the lightweight GAN (hinge + DiffAugment + aux recon) on one
+    domain's train images; writes ``gan_{dataset}_{source}.pt`` (the three
+    state dicts), four EMA samples and, with ``--fid-samples``, the closing
+    VGG-Frechet distance."""
+    import time
+
+    from ccst_tpu_torch.data.lists import parse_list, train_list_path
+    from ccst_tpu_torch.data.loader import ImageBatchLoader, save_image_u8
+    from ccst_tpu_torch.pipeline.train_decoder import synchronize
+    from ccst_tpu_torch.privacy.gan import GanConfig, GanTrainer, vgg_frechet_distance
+    from ccst_tpu_torch.utils.checkpoint import save_checkpoint
+    from ccst_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = GanConfig(
+        image_size=args.image_size, latent_dim=args.latent_dim,
+        batch_size=args.batch_size, lr=args.lr, steps=args.steps,
+        aug_policy=args.aug_policy, seed=args.seed, fmap_max=args.fmap_max,
+        gp_weight=args.gp_weight,
+        attn_res=tuple(int(r) for r in args.attn_res.split(",") if r.strip()),
+    )
+    names, labels = parse_list(train_list_path(args.list_root, args.dataset, args.source))
+    paths = [os.path.join(args.data_root, n) if args.data_root else n for n in names]
+    loader = ImageBatchLoader(
+        paths, labels, batch_size=cfg.batch_size, image_size=cfg.image_size,
+        shuffle=True, seed=cfg.seed, loop=True, drop_last=True,
+    )
+    trainer = GanTrainer(cfg, device=args.device)
+    logger = MetricsLogger(os.path.join(args.out_dir, f"gan_{args.dataset}_{args.source}.jsonl"))
+    it = iter(loader)
+    metrics = {}  # stays empty for --steps 0 (e.g. FID-score-only runs)
+    t_start = None
+    for step in range(cfg.steps):
+        batch = next(it)
+        metrics = trainer.train_step(torch.from_numpy(batch.images), step_idx=step)
+        if step == 0:
+            t_start = time.perf_counter()  # train_step's floats waited for the device
+        if step % max(1, args.log_every) == 0:
+            logger.log("gan_step", step=step, **metrics)
+    synchronize(trainer.device)
+    rate = ((cfg.steps - 1) / (time.perf_counter() - t_start) if cfg.steps > 1
+            else float("nan"))
+    save_checkpoint(os.path.join(args.out_dir, f"gan_{args.dataset}_{args.source}.pt"),
+                    trainer.state())
+    for i, img in enumerate(trainer.generate(4).cpu().numpy()):
+        save_image_u8(img, os.path.join(args.out_dir, f"sample_{i}.png"))
+    if args.fid_samples > 0:
+        from ccst_tpu_torch.models import vgg
+        from ccst_tpu_torch.models.convert import load_encoder
+
+        # encoder only: the decoder plays no role in the Frechet metric
+        enc = (load_encoder(args.vgg_weights) if args.vgg_weights
+               else vgg.init_params(vgg.ENCODER_ARCH, torch.Generator().manual_seed(0)))
+        n = args.fid_samples
+        real = np.concatenate(
+            [next(it).images for _ in range((n + cfg.batch_size - 1) // cfg.batch_size)])[:n]
+        fake = np.clip(trainer.generate(n).cpu().numpy(), 0.0, 1.0)
+        metrics["fid_vgg"] = vgg_frechet_distance(enc, real, fake, device=trainer.device)
+    logger.close()
+    print(json.dumps({"steps": cfg.steps, "out_dir": args.out_dir, **metrics,
+                      "steps_per_sec": rate, "img_per_sec": rate * cfg.batch_size}))
+    return 0
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -355,6 +491,93 @@ def main(argv: Optional[list] = None) -> int:
     _add_dataclass_args(p, FedConfig)
     p.add_argument("--checkpoint", default="best", choices=["best", "latest"])
     p.set_defaults(fn=cmd_fed_test)
+
+    for name in ("fed-train", "fed-test"):
+        sub.choices[name].add_argument(
+            "--nondeterministic", action="store_true",
+            help="let cuDNN pick its nondeterministic algorithms: a faster step whose "
+                 "update differs in its last bits from run to run (the default is "
+                 "deterministic)")
+
+    p = sub.add_parser("invert-train", help="train a style-statistic inverter")
+    for name, default in (
+        ("--dataset", "pacs"), ("--source", ""), ("--list-root", ""), ("--data-root", ""),
+        ("--out-dir", "inverter"), ("--vgg-weights", ""),
+    ):
+        p.add_argument(name, default=default)
+    p.add_argument("--image-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--steps", type=int, default=2000)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--loss", choices=["mse", "mse+perceptual"], default="mse",
+                   help="mse+perceptual = the LPIPS-criterion training variant "
+                        "(imagenet_reconstruct_lpips.py)")
+    p.add_argument("--perc-weight", type=float, default=0.1)
+    p.add_argument("--coordinator", default="", help="multi-process launch: not ported, refused")
+    p.add_argument("--num-procs", type=int, default=0)
+    p.add_argument("--proc-id", type=int, default=-1)
+    p.set_defaults(fn=cmd_invert_train)
+
+    p = sub.add_parser("invert-eval", help="PSNR/LPIPS of style-stat inversion")
+    for name, default in (
+        ("--dataset", "pacs"), ("--source", ""), ("--target", ""), ("--list-root", ""),
+        ("--data-root", ""), ("--out-dir", "inverter"), ("--vgg-weights", ""),
+        ("--lpips-vgg", ""), ("--lpips-lin", ""), ("--style-stats-dir", "style_stats"),
+    ):
+        p.add_argument(name, default=default)
+    p.add_argument("--image-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--overall", action="store_true",
+                   help="invert the domain-level Overall statistic")
+    p.add_argument("--holdout", action="store_true",
+                   help="score only the trainer's held-out val split")
+    p.set_defaults(fn=cmd_invert_eval)
+
+    p = sub.add_parser("gan-train", help="train the lightweight GAN on one domain")
+    p.add_argument("--dataset", default="pacs")
+    p.add_argument("--source", default="art_painting")
+    p.add_argument("--list-root", default="")
+    p.add_argument("--data-root", default="")
+    p.add_argument("--out-dir", default="gan")
+    p.add_argument("--image-size", type=int, default=256)
+    p.add_argument("--latent-dim", type=int, default=256)
+    p.add_argument("--fmap-max", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--aug-policy", default="color,translation,cutout")
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--gp-weight", type=float, default=0.0,
+                   help="R1 gradient penalty weight (upstream uses 10)")
+    p.add_argument("--attn-res", default="",
+                   help="comma list of resolutions for LinearAttention, e.g. 32,64")
+    p.add_argument("--fid-samples", type=int, default=0,
+                   help="N>0: closing VGG-Frechet distance on N samples")
+    p.add_argument("--vgg-weights", default="", help="encoder weights for --fid-samples")
+    p.set_defaults(fn=cmd_gan_train)
+
+    p = sub.add_parser("train-decoder", help="train the AdaIN decoder")
+    p.add_argument("--dataset", default="pacs")
+    p.add_argument("--content-domain", default="")
+    p.add_argument("--style-domain", default="")
+    p.add_argument("--list-root", default="")
+    p.add_argument("--data-root", default="")
+    p.add_argument("--image-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--steps", type=int, default=10000)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--style-weight", type=float, default=10.0)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--vgg-weights", default="")
+    p.add_argument("--init-decoder", default="", help="warm-start decoder weights (.npz)")
+    p.add_argument("--domains", default="",
+                   help="comma-separated domain pool when content/style "
+                        "domain is unset (e.g. sources only)")
+    p.add_argument("--out-path", default="decoder_trained.npz")
+    p.set_defaults(fn=cmd_train_decoder)
 
     for p in sub.choices.values():
         p.add_argument("--device", default="cuda",

@@ -18,7 +18,10 @@ The state is seeded from ``cfg.seed`` and every round draws from a
 runtime seeds its PRNG key. The two streams differ, so runs of the two
 packages agree in distribution, not bit for bit; with the random transform
 taken out they agree round for round (``tests/test_torch_federated.py``).
-Float32 throughout, with TF32 off on the card for the runner's calls.
+Float32 throughout, with TF32 off on the card for the runner's calls, and by
+default cuDNN's deterministic algorithms, so that a step gives the same bits
+from run to run (``deterministic=False`` trades that for a faster step;
+``PERF.md`` has the cost).
 
 Kept gaps of the reference: ``resume`` restores ``best`` twice; ``momentum``
 and ``random_horiz_flip`` are not read. Clients run in sequence:
@@ -82,10 +85,14 @@ class FederatedRunner:
         amp_bank: Optional[np.ndarray] = None,
         logger: Optional[MetricsLogger] = None,
         device: Any = "cuda",
+        deterministic: bool = True,
     ):
         refuse_parallel(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        # cuDNN's deterministic algorithms: a step gives the same bits from run
+        # to run and across a --resume (its default backward does not)
+        self.deterministic = deterministic
         spec = cfg.spec
         gen = torch.Generator().manual_seed(cfg.seed)
         if model is None:
@@ -280,7 +287,7 @@ class FederatedRunner:
     def run(self) -> Dict[str, Any]:
         from ccst_tpu_torch.utils.profiling import maybe_trace
 
-        with no_tf32():
+        with no_tf32(self.deterministic):
             if self.cfg.resume:
                 self.resume()
             with maybe_trace(self.cfg.trace_dir or None):
@@ -300,7 +307,7 @@ class FederatedRunner:
 
     def test_only(self, which: str = "best") -> float:
         self.server = self.load_server(which)
-        with no_tf32():
+        with no_tf32(self.deterministic):
             _, acc = self.evaluate(self.server_eval_state(), self.test_loader)
         self.logger.log("test_only", checkpoint=which, test_acc=acc)
         return acc

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ccst_tpu_torch.kernels import refuse_autograd
 from ccst_tpu_torch.kernels.resident_slice import MAX_ROWS, block_sum
 
 TARGET_ROWS = 128  # a slice is split over more blocks while a block would hold more rows
@@ -120,7 +121,9 @@ def fused_adain_multi(
     input dtype, from one kernel launch that computes the content statistics
     once. Which variant of the kernel runs follows from the shape alone
     (:func:`plan_adain`): the slice resident in the shared memory of a cluster
-    of blocks for maps up to about 119 x 119, streamed above."""
+    of blocks for maps up to about 119 x 119, streamed above. Raises if an
+    input requires grad under grad mode: the kernel has no backward."""
+    refuse_autograd("fused_adain", feat, s_means, s_stds)
     if feat.device.type == "cpu":
         return fused_adain_multi_reference(feat, s_means, s_stds, alpha, eps, ddof)
     n, h, w, c = feat.shape
@@ -167,6 +170,7 @@ def fused_adain(
     with the input by ``alpha``. Returns the input dtype. The S = 1 case of
     :func:`fused_adain_multi` (the same kernel; its launches are counted
     there)."""
+    refuse_autograd("fused_adain", feat, s_mean, s_std)
     if feat.device.type == "cpu":
         return fused_adain_reference(feat, s_mean, s_std, alpha, eps, ddof)
     c = feat.shape[-1]

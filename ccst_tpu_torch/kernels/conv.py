@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ccst_tpu_torch.kernels import refuse_autograd
 from ccst_tpu_torch.kernels.igemm_layout import pack_stage_tiles, pad_index, pick_bn
 
 # csrc/reflect_conv3x3.cu: the narrow output-channel tile of its wgmma path,
@@ -223,9 +224,11 @@ def reflect_conv3x3(
     """(N, H, W, Cin) -> (N, H, W, Cout) in x.dtype; the CUDA kernel on a CUDA
     tensor (bf16 on the tensor cores, float32 exact; weights prepared in the
     same dtype), the plain version on a CPU tensor. ``pad_mode``:
-    ``"reflect"`` or ``"edge"``."""
+    ``"reflect"`` or ``"edge"``. Raises if an operand requires grad under grad
+    mode: the kernel has no backward."""
     if pad_mode not in _TORCH_PAD:
         raise ValueError(f"pad_mode must be 'reflect' or 'edge', got {pad_mode!r}")
+    refuse_autograd("reflect_conv3x3", x, cw.w, cw.b)
     if x.device.type == "cpu":
         return reflect_conv3x3_reference(x, cw.w, cw.b, relu, pad_mode)
     n, h, w, cin = x.shape

@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ccst_tpu_torch.kernels import refuse_autograd
 from ccst_tpu_torch.kernels.resident_slice import block_sum, channel_groups
 
 # rows a block keeps resident (64 KB). One size serves every shape: measured by
@@ -112,7 +113,9 @@ def _tickets_for(device: torch.device, groups: int) -> torch.Tensor:
 
 
 def channel_moments(feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean, m2, count) in float32: (C,), (C,) and a scalar."""
+    """(mean, m2, count) in float32: (C,), (C,) and a scalar. Raises if
+    ``feat`` requires grad under grad mode: the kernel has no backward."""
+    refuse_autograd("channel_moments", feat)
     if feat.device.type == "cpu":
         return channel_moments_reference(feat)
     if feat.dtype not in (torch.bfloat16, torch.float32):

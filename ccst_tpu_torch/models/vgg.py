@@ -1,32 +1,46 @@
 """VGG-19 (normalised) encoder through relu4_1 and its mirror decoder, NHWC.
 
 Port of ``ccst_tpu/models/vgg.py`` (reference style_transfer/AdaIN/net.py:6-92).
-The architecture is the same declarative spec, interpreted by one apply loop:
+The architecture is the same declarative spec, interpreted by one apply loop
+along one of two routes, chosen by the caller's ``route`` argument:
 
-  - every 3x3 conv (reflection pad 1, bias, optional ReLU) runs through
-    ``kernels/conv.py``: the CUDA kernel on the card, its plain version on CPU;
-  - the 1x1 ``conv0`` (3 -> 3, no pad), the ceil-mode 2x2 max pools and the
-    nearest 2x upsamples are plain torch, as the JAX package leaves them to XLA.
+  - ``"kernel"`` (every pass that needs no gradient): every 3x3 conv
+    (reflection pad 1, bias, optional ReLU) runs through ``kernels/conv.py``,
+    the CUDA kernel on the card, its plain version on CPU; the 1x1 ``conv0``
+    (3 -> 3, no pad), the ceil-mode 2x2 max pools and the nearest 2x upsamples
+    are plain torch, as the JAX package leaves them to XLA. Activations are in
+    the compute dtype; convs accumulate in float32 and round once, like
+    ``ccst_tpu.models.vgg.conv2d``.
+  - ``"autograd"`` (decoder training and the inverter's perceptual loss): a
+    reflect-padded ``F.conv2d`` under autograd, in the parameters' dtype; the
+    caller runs it inside ``utils/precision.py::no_tf32`` for float32 on the
+    card. The JAX package trains through XLA's convs, not Pallas, so no TPU
+    kernel has a backward to port; the CUDA kernel has none either and refuses
+    a tensor that requires grad.
 
-Activations are in the compute dtype; convs accumulate in float32 and round
-once, like ``ccst_tpu.models.vgg.conv2d``.
-
-Parameters come in two forms: ``Params``, a dict ``{name: {"w": HWIO, "b"}}``
-as the JAX package and the ``.npz`` format hold them, and ``Prepared``, made
-once by :func:`prepare_params` for a dtype and device, which the apply
-functions take.
+Parameters come in three forms: ``Params``, a dict ``{name: {"w": HWIO, "b"}}``
+as the JAX package and the ``.npz`` format hold them; ``Prepared``, made once
+by :func:`prepare_params` for a dtype and device, which the kernel route takes;
+``Trainable``, ``{name: {"w": OIHW, "b"}}`` ``nn.Parameter``s made by
+:func:`trainable_params`, which the autograd route takes and
+:func:`params_from_trainable` turns back into ``Params``.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ccst_tpu_torch.kernels.conv import ConvWeights, prepare_conv, reflect_conv3x3
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 Prepared = Dict[str, ConvWeights]
+Trainable = Dict[str, Dict[str, torch.nn.Parameter]]
+ROUTES = ("kernel", "autograd")
+TAPS = ("relu1_1", "relu2_1", "relu3_1", "relu4_1")
 
 
 class Conv(NamedTuple):
@@ -145,14 +159,58 @@ def prepare_params(params, dtype: torch.dtype, device) -> Prepared:
     }
 
 
-def _apply(params: Prepared, x: torch.Tensor, arch: Sequence, stop_at: str = ""):
+def trainable_params(params, device, dtype: torch.dtype = torch.float32,
+                     requires_grad: bool = True) -> Trainable:
+    """The autograd route's parameters from a ``Params`` tree (tensors or
+    numpy arrays, HWIO): OIHW weights and biases as ``nn.Parameter``s of
+    ``dtype`` on ``device``; ``requires_grad=False`` for a frozen network
+    through which gradients still reach the input."""
+    def param(a, perm=None):
+        # a copy always: the optimizer updates the parameters in place
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+        t = t.detach().to(device=device, dtype=dtype, copy=True)
+        return torch.nn.Parameter((t.permute(*perm) if perm else t).contiguous(),
+                                  requires_grad=requires_grad)
+
+    return {name: {"w": param(p["w"], (3, 2, 0, 1)), "b": param(p["b"])}
+            for name, p in params.items()}
+
+
+def params_from_trainable(trainable: Trainable) -> Params:
+    """Back to the HWIO ``Params`` tree, float32 on the CPU, as
+    ``models/convert.py::save_npz`` writes it (and ``ccst-tpu`` reads it)."""
+    return {name: {"w": p["w"].detach().float().cpu().permute(2, 3, 1, 0).contiguous(),
+                   "b": p["b"].detach().float().cpu().clone()}
+            for name, p in trainable.items()}
+
+
+def _conv_autograd(x: torch.Tensor, p, ksize: int, relu: bool) -> torch.Tensor:
+    """NHWC conv on the autograd route: the NHWC tensor seen as NCHW in
+    channels-last memory, reflect pad 1 for a 3x3 kernel, ``F.conv2d``."""
+    y = x.permute(0, 3, 1, 2)
+    if ksize == 3:
+        y = F.pad(y, (1, 1, 1, 1), mode="reflect")
+    y = F.conv2d(y, p["w"], p["b"])
+    if relu:
+        y = torch.relu(y)
+    return y.permute(0, 2, 3, 1)
+
+
+def _apply(params, x: torch.Tensor, arch: Sequence, stop_at: str = "",
+           taps: Sequence[str] = (), route: str = "kernel"):
+    """Walk ``arch`` from ``x``; returns the output and the named taps."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    collected = {}
     for layer in arch:
         if isinstance(layer, Conv):
-            cw = params[layer.name]
-            if layer.ksize == 3:
-                x = reflect_conv3x3(x, cw, relu=layer.relu)
+            p = params[layer.name]
+            if route == "autograd":
+                x = _conv_autograd(x, p, layer.ksize, layer.relu)
+            elif layer.ksize == 3:
+                x = reflect_conv3x3(x, p, relu=layer.relu)
             else:
-                x = conv1x1(x, cw)
+                x = conv1x1(x, p)
                 if layer.relu:
                     x = torch.relu(x)
         elif isinstance(layer, Pool):
@@ -160,18 +218,28 @@ def _apply(params: Prepared, x: torch.Tensor, arch: Sequence, stop_at: str = "")
         elif isinstance(layer, Upsample):
             x = upsample_nearest2x(x)
         elif isinstance(layer, Tap):
+            if layer.name in taps:
+                collected[layer.name] = x
             if layer.name == stop_at:
-                return x
+                return x, collected
         else:
             raise TypeError(f"unknown layer spec {layer!r}")
-    return x
+    return x, collected
 
 
-def apply_encoder(params: Prepared, images: torch.Tensor) -> torch.Tensor:
-    """Images (N, H, W, 3) in [0, 1] -> relu4_1 features (N, H/8, W/8, 512)."""
-    return _apply(params, images, ENCODER_ARCH, stop_at="relu4_1")
+def apply_encoder(params, images: torch.Tensor, route: str = "kernel") -> torch.Tensor:
+    """Images (N, H, W, 3) in [0, 1] -> relu4_1 features (N, H/8, W/8, 512);
+    ``params`` is ``Prepared`` on the kernel route, ``Trainable`` on the
+    autograd route."""
+    return _apply(params, images, ENCODER_ARCH, stop_at="relu4_1", route=route)[0]
 
 
-def apply_decoder(params: Prepared, feat: torch.Tensor) -> torch.Tensor:
+def encoder_taps(params, images: torch.Tensor, route: str = "kernel") -> Dict[str, torch.Tensor]:
+    """relu1_1..relu4_1 intermediate features, for the AdaIN training losses
+    and the perceptual distance."""
+    return _apply(params, images, ENCODER_ARCH, stop_at="relu4_1", taps=TAPS, route=route)[1]
+
+
+def apply_decoder(params, feat: torch.Tensor, route: str = "kernel") -> torch.Tensor:
     """relu4_1 features -> image (N, H*8, W*8, 3); raw output, no activation."""
-    return _apply(params, feat, DECODER_ARCH)
+    return _apply(params, feat, DECODER_ARCH, route=route)[0]

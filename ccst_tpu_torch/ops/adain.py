@@ -2,7 +2,8 @@
 
 Port of ``ccst_tpu/ops/adain.py``: per-(N, C) spatial statistics in float32,
 unbiased (``ddof=1``) variance by default, eps added to the variance before the
-square root (reference style_transfer/AdaIN/function.py:4-33). The stylize
+square root (reference style_transfer/AdaIN/function.py:4-33). float64 inputs
+(the training checks' reference) stay float64. The stylize
 path runs the fused kernel (``kernels/adain.py``); these are the unfused ops.
 """
 from __future__ import annotations
@@ -12,14 +13,19 @@ from typing import Tuple
 import torch
 
 
+def _stat_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32, or float64 for a float64 input."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def calc_mean_std(
     feat: torch.Tensor, eps: float = 1e-5, ddof: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(N, C) spatial mean and std of an NHWC feature map, each
-    (N, 1, 1, C) float32."""
+    (N, 1, 1, C) float32 (float64 for a float64 map)."""
     if feat.ndim != 4:
         raise ValueError(f"expected NHWC feature map, got shape {tuple(feat.shape)}")
-    x = feat.float()
+    x = feat.to(_stat_dtype(feat))
     mean = x.mean(dim=(1, 2), keepdim=True)
     var = x.var(dim=(1, 2), keepdim=True, correction=ddof)
     return mean, torch.sqrt(var + eps)
@@ -31,10 +37,10 @@ def adain_from_stats(
     """AdaIN with given style statistics, broadcastable to (N, 1, 1, C).
     Returns the dtype of ``content_feat``."""
     c_mean, c_std = calc_mean_std(content_feat, eps=eps)
-    x = content_feat.float()
-    dev = content_feat.device
-    style_mean = torch.as_tensor(style_mean, dtype=torch.float32, device=dev)
-    style_std = torch.as_tensor(style_std, dtype=torch.float32, device=dev)
+    dtype, dev = _stat_dtype(content_feat), content_feat.device
+    x = content_feat.to(dtype)
+    style_mean = torch.as_tensor(style_mean, dtype=dtype, device=dev)
+    style_std = torch.as_tensor(style_std, dtype=dtype, device=dev)
     normalized = (x - c_mean) / c_std
     return (normalized * style_std + style_mean).to(content_feat.dtype)
 

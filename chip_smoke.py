@@ -98,13 +98,41 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      rule of ``tests/test_train_equivalence.py``) or twice the CPU float32
      step's own median distance, where float32 cannot meet that rule (BN
      leaves, whose gradients cancel). Last the card's times: ms a local
-     step of ResNet-50 at batch 32 (CUDA events, median of runs after a
-     warm-up) and training img/s, eval img/s, the CLI run's seconds a round
+     step of ResNet-50 at batch 32 in the runner's mode (cuDNN deterministic;
+     CUDA events, median of runs after a warm-up) and training img/s, eval img/s, the CLI run's seconds a round
      and the share of it the host waited on the loader, and
      ``torch.cuda.max_memory_allocated`` over the timed steps, all on a
      ``fed`` JSON line with the card's name and power limit. No TPU kernel
      lies on this path: the classifiers run cuDNN / cuBLAS / cuFFT through
      ``torch.nn.functional`` and ``torch.fft``, as ``ccst_tpu`` runs XLA.
+     Then ROADMAP's F3: one ResNet-50 step twice in this process and once in
+     a second one (``benchmarks/fed_bits.py``), bit for bit, with cuDNN as
+     the runner leaves it and in its deterministic mode, each mode's step
+     timed (the deterministic mode must give the same bits);
+  8. decoder training and the privacy inversion, on the same tree, at 256 px
+     with seeded random weights: the kernel wrappers K3 (bf16 and float32),
+     K4 and K5 must raise on a CUDA tensor that requires grad; then through
+     the CLI in this process, each with every launch count zeroed before it
+     and read after it: ``train-decoder`` (batch 8, 3 Adam steps,
+     ``--init-decoder`` the smoke's decoder: 18 K3 a step, the frozen
+     encoder's float32 passes), ``invert-train --loss mse+perceptual`` (batch
+     16, 3 steps, on a list that pools the four domains: 18 K3 a step and 9 a
+     val batch), ``invert-eval`` plain, ``--overall`` (phase 4's bank),
+     ``--holdout`` and with ``--lpips-vgg/--lpips-lin`` (state dicts the
+     smoke builds and saves; 27 K3 a batch, 18 with ``--overall``),
+     ``gan-train`` (batch 8, 3 steps, ``--gp-weight 10 --attn-res 32
+     --fid-samples 16``: 18 K3); every printed number finite, the decoder's
+     ``.npz`` of the decoder's tree and moved by at most 2 lr a step, the
+     reconstructions and samples written, the penalty on at step 0. Then one
+     ``train-decoder`` step and one inverter step (``mse+perceptual``, the
+     style vectors from the card) on the card against the CPU's float32 and
+     float64 steps by phase 7's rule (loss within 1e-4; per leaf median
+     |d_card - d_64| at most max(1e-3, 2 x the CPU float32 step's own) of max
+     |d_64|), the style vector against its plain version on the CPU (1e-2 of
+     each vector's max). Steps a second, img/s and peak device memory of each
+     run go on the ``privacy`` line with the card's name and power limit. The
+     trainable passes run cuDNN through the autograd route, as ``ccst_tpu``
+     trains through XLA's convs; every grad-free VGG pass runs K3.
 
 The random decoder's last conv is rescaled (x12, bias +0.5) so that stylized
 outputs spread over [0, 1] as real ones do: the MAE bar is then 0.1% of the
@@ -116,9 +144,10 @@ near-constant.
 runs the same phases on a larger synthetic tree and batch, for the device
 rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
-Before the last two lines comes the ``fed`` JSON line of phase 7. The line
+Before the last two lines come the ``fed`` JSON line of phase 7 (with F3's
+``step_bits``) and the ``privacy`` line of phase 8. The line
 before the last is a JSON object with one entry per kernel, whose
-``launches`` are the phase-4 main paths' counts (K2 decodes ``int8-fused``:
+``launches`` are the counts of the main paths of phases 4 and 8 (K2 decodes ``int8-fused``:
 on this card it is faster than the two K0 launches it replaces,
 ``replaces_chain_ms``) and,
 for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
@@ -1036,6 +1065,7 @@ def time_fed_step(torch, dev, root):
     eval step, and the peak of device memory over them."""
     from ccst_tpu_torch.federated.train_ops import make_eval_step, make_train_step
     from ccst_tpu_torch.models.classifiers import get_network, init_weights
+    from ccst_tpu_torch.utils.precision import no_tf32
 
     model = init_weights(get_network(FED_NET, FED_CLASSES), torch.Generator().manual_seed(0)).to(dev)
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1050,8 +1080,9 @@ def time_fed_step(torch, dev, root):
     def one_step():
         holder[0], _ = step(holder[0], state, bd, gen, 0)
 
-    step_ms = time_ms(torch, one_step, reps=5, runs=5)
-    eval_ms = time_ms(torch, lambda: evaluate(holder[0], bd), reps=5, runs=5)
+    with no_tf32(deterministic=True):  # the runner's mode (F3)
+        step_ms = time_ms(torch, one_step, reps=5, runs=5)
+        eval_ms = time_ms(torch, lambda: evaluate(holder[0], bd), reps=5, runs=5)
     peak = torch.cuda.max_memory_allocated()
     return {"step_ms": step_ms, "train_img_s": FED_BATCH / (step_ms * 1e-3), "eval_ms": eval_ms,
             "eval_img_s": FED_BATCH / (eval_ms * 1e-3), "max_memory_allocated_bytes": peak}
@@ -1142,18 +1173,342 @@ def run_fed_phase(torch, dev, root, smi, images_per_domain):
     bank = load_amp_bank(root, "pacs", [d for d in DOMAINS if d != "photo"], max_per_domain=64)
     steps = check_fed_steps(torch, dev, root, bank)
     times = time_fed_step(torch, dev, root)
-    print(f"fed step on the card (ResNet-50, {FED_BATCH} x {FED_SIZE}px, float32, TF32 off): "
+    print(f"fed step on the card (ResNet-50, {FED_BATCH} x {FED_SIZE}px, float32, TF32 off, "
+          "cuDNN deterministic): "
           f"{times['step_ms']:.2f} ms = {times['train_img_s']:.1f} img/s; eval "
           f"{times['eval_ms']:.2f} ms = {times['eval_img_s']:.1f} img/s; peak device memory "
           f"{times['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
     return {"card": smi, "network": FED_NET, "batch": FED_BATCH, "image_size": FED_SIZE,
-            "classes": FED_CLASSES, "fusion_mode": FED_FUSION, "precision": "float32, TF32 off",
+            "classes": FED_CLASSES, "fusion_mode": FED_FUSION,
+            "precision": "float32, TF32 off, cuDNN deterministic",
             **times,
             "round_seconds": [r["seconds"] for r in rounds],
             "round_loader_wait_seconds": [r["loader_wait_seconds"] for r in rounds],
             "loader_wait_share": [r["loader_wait_seconds"] / r["seconds"] for r in rounds],
             "cli_seconds": seconds, "step_checks": steps,
             "phase_seconds": time.perf_counter() - t0}
+
+
+# -- decoder training and the privacy inversion (phase 8) ----------------------
+
+PRIV_SIZE, PRIV_STEPS = 256, 3          # ccst-tpu's defaults: 256 px
+DEC_BATCH, INV_BATCH, GAN_BATCH = 8, 16, 8
+FID_SAMPLES = 16
+PRIV_SOURCE = "art_painting"
+# one train-decoder / inverter step on the card against the CPU's float32 and
+# float64 steps: phase 7's rule, as FED_* above
+STEP_LOSS_RTOL, STEP_DELTA_MEDIAN, STEP_F32_FACTOR = 1e-4, 1e-3, 2.0
+# the style vector (K3 bf16) on the card against the CPU's plain version: bf16's
+# 8 bits, sums in another order before the one rounding
+Z_REL_TOL = 1e-2
+LPIPS_PLAN = ((0, 64), (2, 64), "M", (5, 128), (7, 128), "M", (10, 256), (12, 256), (14, 256),
+              "M", (17, 512), (19, 512), (21, 512), "M", (24, 512), (26, 512), (28, 512))
+
+
+def check_grad_guard(torch, dev):
+    """Every kernel wrapper without a backward refuses a CUDA tensor that
+    requires grad under grad mode, and runs under no_grad."""
+    from ccst_tpu_torch.kernels.adain import fused_adain_multi
+    from ccst_tpu_torch.kernels.conv import prepare_conv, reflect_conv3x3
+    from ccst_tpu_torch.kernels.moments import channel_moments
+
+    gen = torch.Generator().manual_seed(5)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        cw = prepare_conv(torch.randn((3, 3, 64, 64), generator=gen) * 0.05,
+                          torch.zeros(64), dt, dev)
+        cases.append((f"reflect_conv3x3 {dt}", lambda x, cw=cw: reflect_conv3x3(x, cw),
+                      (2, 16, 16, 64), dt))
+    stats = (torch.zeros((1, 64), device=dev), torch.ones((1, 64), device=dev))
+    cases += [("fused_adain_multi", lambda x: fused_adain_multi(x, *stats), (2, 8, 8, 64),
+               torch.float32),
+              ("channel_moments", channel_moments, (2, 8, 8, 64), torch.float32)]
+    for name, fn, shape, dt in cases:
+        x = torch.randn(shape, generator=gen).to(dev, dt).requires_grad_()
+        try:
+            fn(x)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name} took a CUDA tensor that requires grad")
+        with torch.no_grad():
+            fn(x)
+    torch.cuda.synchronize()
+    print(f"grad guard: {', '.join(n for n, *_ in cases)} raise on a CUDA tensor that requires "
+          "grad and run under no_grad")
+
+
+def privacy_lists(root, images_per_domain):
+    """A list root whose ``PRIV_SOURCE`` list pools every domain's images, so
+    that the inverter's train split fills batches of ``INV_BATCH``."""
+    from ccst_tpu_torch.data.lists import parse_list, train_list_path, write_list
+
+    names, labels = [], []
+    for d in DOMAINS:
+        n, l = parse_list(train_list_path(root, "pacs", d))
+        names += n
+        labels += l
+    list_root = os.path.join(root, "privacy")
+    write_list(train_list_path(list_root, "pacs", PRIV_SOURCE), names, labels)
+    if len(names) != len(DOMAINS) * images_per_domain:
+        fail(f"privacy list: {len(names)} images")
+    return list_root, names
+
+
+def lpips_files(torch, root):
+    """torchvision-layout VGG16 features and LPIPS lin heads, seeded random
+    (the published files need the network), saved as the CLI reads them."""
+    g = torch.Generator().manual_seed(11)
+    vgg16, cin = {}, 3
+    for item in LPIPS_PLAN:
+        if item == "M":
+            continue
+        idx, cout = item
+        vgg16[f"features.{idx}.weight"] = torch.randn((cout, cin, 3, 3), generator=g) * (
+            2.0 / (9 * cin)) ** 0.5
+        vgg16[f"features.{idx}.bias"] = torch.randn((cout,), generator=g) * 0.01
+        cin = cout
+    lin = {f"lin{i}.model.1.weight": torch.rand((1, c, 1, 1), generator=g)
+           for i, c in enumerate((64, 128, 256, 512, 512))}
+    paths = (os.path.join(root, "lpips_vgg16.pth"), os.path.join(root, "lpips_lin.pth"))
+    torch.save(vgg16, paths[0])
+    torch.save(lin, paths[1])
+    return paths
+
+
+def priv_images(torch, root, names, n):
+    """The first ``n`` listed images at PRIV_SIZE, float32 in [0, 1] (CPU)."""
+    from ccst_tpu_torch.data.loader import ImageBatchLoader
+
+    loader = ImageBatchLoader([os.path.join(root, p) for p in names[:n]], batch_size=n,
+                              image_size=PRIV_SIZE)
+    return torch.from_numpy(next(iter(loader)).images)
+
+
+def compare_steps(torch, tag, start, outs):
+    """Phase 7's rule on one step's ``outs`` = {run: (leaves, loss)} for the runs
+    "card", "cpu32", "cpu64" from the float64 ``start`` leaves: the loss within
+    STEP_LOSS_RTOL, each leaf's median |d_card - d_64| at most
+    max(STEP_DELTA_MEDIAN, STEP_F32_FACTOR x the CPU float32 step's own) of max |d_64|."""
+    (card, l_card), (c32, l_32), (c64, l_64) = outs["card"], outs["cpu32"], outs["cpu64"]
+    failures, worst = [], []
+    rel = abs(l_card - l_64) / abs(l_64)
+    if not math.isfinite(l_card) or rel > STEP_LOSS_RTOL or abs(l_32 - l_64) / abs(l_64) > STEP_LOSS_RTOL:
+        failures.append(f"{tag}: loss card {l_card}, CPU float32 {l_32}, float64 {l_64}")
+    for k, old in start.items():
+        d64 = c64[k] - old
+        scale = d64.abs().max().item()
+        if scale == 0.0:
+            if (card[k] - old).abs().max().item() != 0.0:
+                failures.append(f"{tag}: {k} moved on the card only")
+            continue
+        e_card = (card[k] - c64[k]).abs().median().item() / scale
+        e_cpu = (c32[k] - c64[k]).abs().median().item() / scale
+        worst.append((e_card, k, e_cpu))
+        if not e_card <= max(STEP_DELTA_MEDIAN, STEP_F32_FACTOR * e_cpu):
+            failures.append(f"{tag}: {k} median |d_card - d_64| {e_card:.3e} of max |d_64| "
+                            f"(the CPU's float32 {e_cpu:.3e})")
+    worst.sort(reverse=True)
+    pair = max((card[k] - c32[k]).abs().max().item() / max((c64[k] - old).abs().max().item(),
+                                                           1e-30) for k, old in start.items())
+    row = {"loss_card": l_card, "loss_cpu32": l_32, "loss_cpu64": l_64, "loss_rel_err": rel,
+           "max_card_vs_cpu32": pair,
+           "leaves": len(worst), "worst_card_vs_64": worst[0][0],
+           "worst_cpu32_vs_64": max(e for _, _, e in worst),
+           "worst_leaves": [(k, e, c) for e, k, c in worst[:3]]}
+    print(f"{tag} step ({PRIV_SIZE}px, float32, TF32 off): loss card {l_card:.6f} CPU float32 "
+          f"{l_32:.6f} float64 {l_64:.6f}; worst leaf median |d - d_64| / max |d_64|: card "
+          f"{row['worst_card_vs_64']:.2e}, CPU float32 {row['worst_cpu32_vs_64']:.2e} over "
+          f"{len(worst)} leaves; largest |d_card - d_cpu32| {pair:.2e} of max |d_64|")
+    return row, failures
+
+
+def check_privacy_steps(torch, dev, root, names, enc, dec):
+    """One train-decoder step and one inverter step (``mse+perceptual``) on the
+    card against the same step on the CPU in float32 and float64. The
+    inverter's style vectors come from the card (K3 bf16) and feed all three;
+    they are held against the CPU's plain version first."""
+    from ccst_tpu_torch.models import vgg
+    from ccst_tpu_torch.pipeline.train_decoder import DecoderTrainConfig, DecoderTrainer
+    from ccst_tpu_torch.privacy.generator import StyleInverter
+    from ccst_tpu_torch.privacy.invert import InvertConfig, InverterTrainer, style_vector
+
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    runs = {"card": (dev, f32, True), "cpu32": (cpu, f32, True), "cpu64": (cpu, f64, False)}
+    report, failures = {}, []
+
+    content = priv_images(torch, root, [n for n in names if "/photo/" in n], DEC_BATCH)
+    style = priv_images(torch, root, [n for n in names if f"/{PRIV_SOURCE}/" in n], DEC_BATCH)
+    cfg = DecoderTrainConfig(lr=1e-4)
+    start = {f"{n}/{k}": p.detach() for n, l in vgg.trainable_params(dec, cpu, f64).items()
+             for k, p in l.items()}
+    outs = {}
+    for run, (d, dt, kernel) in runs.items():
+        t = DecoderTrainer(cfg, enc, dec, d, dt, kernel=kernel)
+        lc, ls = t.step(content.to(d, dt), style.to(d, dt))
+        outs[run] = ({f"{n}/{k}": p.detach().double().cpu() for n, l in t.decoder.items()
+                      for k, p in l.items()},
+                     float(cfg.content_weight * lc + cfg.style_weight * ls))
+    report["train-decoder"], bad = compare_steps(torch, "train-decoder", start, outs)
+    failures += bad
+
+    images = priv_images(torch, root, names, INV_BATCH)
+    with torch.no_grad():
+        z = style_vector(vgg.prepare_params(enc, torch.bfloat16, dev), images.to(dev)).cpu()
+        z_cpu = style_vector(vgg.prepare_params(enc, torch.bfloat16, cpu), images)
+    torch.cuda.synchronize()
+    z_err = ((z - z_cpu).abs().amax(dim=1) / z_cpu.abs().amax(dim=1)).max().item()
+    print(f"style vector (K3 bf16, {INV_BATCH} x {PRIV_SIZE}px): card vs CPU plain version "
+          f"{z_err:.2e} of each vector's max")
+    if not z_err <= Z_REL_TOL:
+        failures.append(f"style vector: {z_err:.3e} > {Z_REL_TOL}")
+    icfg = InvertConfig(image_size=PRIV_SIZE, loss="mse+perceptual")
+    init = StyleInverter(image_size=PRIV_SIZE,
+                         generator=torch.Generator().manual_seed(1)).state_dict()
+    start = {k: v.double() for k, v in init.items()}
+    outs = {}
+    for run, (d, dt, kernel) in runs.items():
+        model = StyleInverter(image_size=PRIV_SIZE)
+        model.load_state_dict(init)
+        t = InverterTrainer(icfg, enc, d, dt, kernel=kernel, model=model)
+        loss = t.step(images.to(d, dt), z.to(d, dt))
+        outs[run] = ({k: v.detach().double().cpu() for k, v in t.model.state_dict().items()},
+                     float(loss))
+    report["invert-train"], bad = compare_steps(torch, "invert-train", start, outs)
+    report["style_vector_rel_err"] = z_err
+    failures += bad
+    if failures:
+        fail("privacy steps:\n  " + "\n  ".join(failures[:40]))
+    return report
+
+
+def run_privacy_phase(torch, root, run_step, smi, images_per_domain, enc_path, dec_path,
+                      stats_dir, enc, dec, dev):
+    """Phase 8 on phase 4's tree: the four subcommands through the CLI at
+    256 px with exact K3 counts, the grad guard, then the card's steps
+    against the CPU's. Returns the ``privacy`` line."""
+    t0 = time.perf_counter()
+    check_grad_guard(torch, dev)
+    list_root, names = privacy_lists(root, images_per_domain)
+    lpips_vgg, lpips_lin = lpips_files(torch, root)
+    out = os.path.join(root, "privacy_out")
+    n_val = max(1, int(len(names) * 0.1))
+    n_eval = min(64, len(names))
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    common = ["--dataset", "pacs", "--data-root", root, "--image-size", str(PRIV_SIZE),
+              "--vgg-weights", enc_path, "--device", "cuda"]
+    inv = [*common, "--source", PRIV_SOURCE, "--list-root", list_root, "--out-dir",
+           os.path.join(out, "inverter"), "--batch-size", str(INV_BATCH)]
+    # K3 a step: train-decoder 9 for the style image's taps + 9 for the
+    # content's relu4_1 (float32); invert-train 9 for the style vector (bf16) +
+    # 9 for the images' perceptual taps (float32), and 9 a val batch; invert-eval
+    # 9 + 18 a batch (style vector, both perceptual sides), --overall 18 a batch;
+    # gan-train 9 for each of the real and the fake --fid-samples batch
+    steps = (
+        ("train-decoder", ["train-decoder", *common, "--list-root", root, "--batch-size",
+                           str(DEC_BATCH), "--steps", str(PRIV_STEPS), "--init-decoder", dec_path,
+                           "--out-path", os.path.join(out, "decoder.npz")],
+         {"K3": 18 * PRIV_STEPS}, DEC_BATCH * PRIV_STEPS),
+        ("invert-train", ["invert-train", *inv, "--steps", str(PRIV_STEPS), "--loss",
+                          "mse+perceptual"],
+         {"K3": 18 * PRIV_STEPS + 9 * batches(n_val, INV_BATCH)}, INV_BATCH * PRIV_STEPS),
+        ("invert-eval", ["invert-eval", *inv], {"K3": 27 * batches(n_eval, INV_BATCH)}, n_eval),
+        ("invert-eval --overall", ["invert-eval", *inv, "--overall", "--style-stats-dir",
+                                   stats_dir], {"K3": 18 * batches(n_eval, INV_BATCH)}, n_eval),
+        ("invert-eval --holdout", ["invert-eval", *inv, "--holdout"],
+         {"K3": 27 * batches(n_val, INV_BATCH)}, n_val),
+        ("invert-eval --lpips", ["invert-eval", *inv, "--lpips-vgg", lpips_vgg, "--lpips-lin",
+                                 lpips_lin], {"K3": 27 * batches(n_eval, INV_BATCH)}, n_eval),
+        ("gan-train", ["gan-train", *common, "--source", PRIV_SOURCE, "--list-root", list_root,
+                       "--out-dir", os.path.join(out, "gan"), "--batch-size", str(GAN_BATCH),
+                       "--steps", str(PRIV_STEPS), "--gp-weight", "10", "--attn-res", "32",
+                       "--fid-samples", str(FID_SAMPLES), "--log-every", "1"],
+         {"K3": 18}, GAN_BATCH * PRIV_STEPS),
+    )
+    rows = {}
+    for name, argv, expect, images in steps:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        printed = json.loads(run_step(name, argv, expect).strip().splitlines()[-1])
+        wall = time.perf_counter() - t1
+        row = {"seconds": wall, "images": images,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        if "steps_per_sec" in printed:
+            row.update(steps_per_sec=printed["steps_per_sec"], img_per_sec=printed["img_per_sec"])
+        else:
+            row["img_per_sec"] = images / wall  # the whole CLI call, model setup included
+        numbers = [v for k, v in printed.items() if isinstance(v, float)]
+        if not numbers or not all(math.isfinite(v) for v in numbers):
+            fail(f"{name}: non-finite numbers in {printed}")
+        row["printed"] = printed
+        rows[name] = row
+    # what each wrote
+    from ccst_tpu_torch.models.convert import load_decoder
+
+    trained = load_decoder(os.path.join(out, "decoder.npz"))
+    if sorted(trained) != sorted(dec) or not all(
+            bool(torch.isfinite(p[k]).all()) for p in trained.values() for k in p):
+        fail("train-decoder wrote a decoder of another tree or with non-finite values")
+    moved = max((trained[n][k] - torch.as_tensor(dec[n][k])).abs().max().item()
+                for n in dec for k in ("w", "b"))
+    if not 0 < moved <= 2 * 1e-4 * PRIV_STEPS:
+        fail(f"train-decoder moved a weight by {moved:.3e} in {PRIV_STEPS} Adam steps of lr 1e-4")
+    ev = rows["invert-eval --lpips"]["printed"]
+    recon = read_images([os.path.join(ev["recon_dir"], f"recon_{i}.png") for i in range(2)])
+    if recon.shape != (2, PRIV_SIZE, PRIV_SIZE, 3) or not 0 < ev["lpips_mean"] < 10:
+        fail(f"invert-eval --lpips: {recon.shape} PNGs, lpips {ev.get('lpips_mean')}")
+    if rows["invert-eval --holdout"]["printed"]["images"] != n_val:
+        fail("invert-eval --holdout scored another count than the val split")
+    gan = os.path.join(out, "gan")
+    if not all(os.path.exists(os.path.join(gan, f"sample_{i}.png")) for i in range(4)):
+        fail("gan-train wrote no samples")
+    gp = [json.loads(l)["gp"] for l in open(os.path.join(gan, "gan_pacs_art_painting.jsonl"))]
+    if not gp[0] > 0:
+        fail(f"gan-train: the penalty did not run at step 0 ({gp})")
+    steps_report = check_privacy_steps(torch, dev, root, names, enc, dec)
+    line = {"card": smi, "image_size": PRIV_SIZE, "precision": "float32, TF32 off; K3 bf16 "
+            "for the style vector", "steps": PRIV_STEPS,
+            "runs": {k: {kk: vv for kk, vv in v.items() if kk != "printed"}
+                     for k, v in rows.items()},
+            "step_checks": steps_report, "phase_seconds": time.perf_counter() - t0}
+    for k, v in rows.items():
+        print(f"{k}: {v['seconds']:.1f} s, " + (f"{v['steps_per_sec']:.2f} steps/s, "
+              if "steps_per_sec" in v else "") + f"{v['img_per_sec']:.1f} img/s, peak device "
+              f"memory {v['max_memory_allocated_bytes'] / 2**30:.2f} GiB ({smi})")
+    return line
+
+
+def check_step_bits(torch, dev):
+    """ROADMAP F3: one ResNet-50 step (fedavg, batch 32, 222 px, TF32 off)
+    twice in this process and once in another, bit for bit, with cuDNN as the
+    runner leaves it and in its deterministic mode; and the step's time in
+    each mode."""
+    from ccst_tpu_torch.benchmarks import fed_bits
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    out = {}
+    for det in (False, True):
+        here = fed_bits.step_digests(dev, 2, deterministic=det)
+        proc = subprocess.run([sys.executable, "-m", "ccst_tpu_torch.benchmarks.fed_bits",
+                               "--repeats", "1", *(["--deterministic"] if det else [])],
+                              cwd=HERE, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"fed_bits exited {proc.returncode}: {proc.stderr[-2000:]}")
+        there = json.loads(proc.stdout.strip().splitlines()[-1])["digests"]
+        with no_tf32(deterministic=det):
+            run = fed_bits.make_case(dev)
+            ms = time_ms(torch, run, reps=5, runs=5)
+        key = "deterministic" if det else "default"
+        out[key] = {"same_in_process": here[0] == here[1], "same_across_processes":
+                    here[0] == there[0], "step_ms": ms, "digests": [*here, *there]}
+        print(f"step bits ({key} cuDNN): same twice in one process {here[0] == here[1]}, "
+              f"same in a second process {here[0] == there[0]}; step {ms:.2f} ms")
+    out["deterministic_cost"] = out["deterministic"]["step_ms"] / out["default"]["step_ms"] - 1
+    if not (out["deterministic"]["same_in_process"] and out["deterministic"]["same_across_processes"]):
+        fail("cuDNN's deterministic mode gave different bits for the same step")
+    return out
 
 
 def run_harnesses(torch, counters):
@@ -1549,6 +1904,11 @@ def main() -> int:
         run_step("gen-lists --k 3", ["gen-lists", "--dataset", "pacs", "--target", "photo",
                                      "--list-root", root, "--k", "3", "--device", "cuda"], {})
         fed = run_fed_phase(torch, dev, root, smi, images_per_domain)
+        fed["step_bits"] = check_step_bits(torch, dev)
+
+        # -- 8. decoder training and the privacy inversion on this tree
+        privacy = run_privacy_phase(torch, root, run_step, smi, images_per_domain, enc_path,
+                                    dec_path, stats_dir, enc, dec, dev)
 
         for d in DOMAINS:
             mean, std = load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
@@ -1890,7 +2250,9 @@ def main() -> int:
 
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
-               "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN), "stylize ref, packed"),
+               "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN),
+               "stylize ref, packed; train-decoder, invert-train, invert-eval, gan-train "
+               "--fid-samples (grad-free passes)"),
         "K4": ("fused_adain_multi", "cuda", "ccst_tpu_torch/csrc/adain.cu",
                "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
                "stylize (every engine, both modes)"),
@@ -1954,6 +2316,7 @@ def main() -> int:
         })
     print(f"wall: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"fed": fed}))
+    print(json.dumps({"privacy": privacy}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ from ccst_tpu.data.loader import load_image, save_image_u8
 from ccst_tpu.models import convert as jconvert
 from ccst_tpu.models import vgg as jvgg
 from ccst_tpu_torch.cli import main as torch_cli
+from tests.torch_parity import pinned_io_tier  # noqa: F401  (both CLIs read the same pixels)
 
 DOMAINS = ["art_painting", "cartoon", "photo", "sketch"]
 N_IMAGES = 5  # per domain: batches of 2, 2 and 1 (padded)
@@ -146,6 +147,18 @@ def test_output_size_matches_jax_cli(tree, tmp_path):
     assert sorted(outs["torch"]) == sorted(outs["jax"]) and len(outs["torch"]) == N_IMAGES * 3
     assert all(load_image(p, dtype="uint8").shape == (12, 12, 3) for p in outs["torch"].values())
     assert _max_level_diff(outs["torch"], outs["jax"]) <= 1
+
+
+def test_output_size_matches_jax_cli_on_the_pil_tier(tree, tmp_path, monkeypatch):
+    """The pin itself: with ``ccst_tpu``'s native library off (as when its
+    build raced another worker's), the port follows it to PIL, and the two
+    CLIs' outputs stay within one level."""
+    import ccst_tpu.native as jnative
+    import ccst_tpu_torch.native as tnative
+
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    assert tnative.available() is False
+    test_output_size_matches_jax_cli(tree, tmp_path)
 
 
 @pytest.mark.parametrize("engine", ["packed", "int8"])

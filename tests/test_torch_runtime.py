@@ -136,3 +136,29 @@ def test_parallel_flags_are_refused(tree, tmp_path):
                {"coordinator": "localhost:1234"}, {"num_procs": 2}):
         with pytest.raises(SystemExit, match="Queue 1 item 8"):
             FederatedRunner(_cfg(FedConfig, tree, str(tmp_path), "fedavg", **kw), device="cpu")
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_runner_asks_cudnn_for_deterministic_algorithms(tree, tmp_path, monkeypatch,
+                                                        deterministic):
+    """F3: the runner's calls run under cuDNN's deterministic mode unless
+    asked not to; the mode is restored afterwards."""
+    from contextlib import contextmanager
+
+    import ccst_tpu_torch.federated.runtime as rt
+
+    seen, real = [], rt.no_tf32
+
+    @contextmanager
+    def spy(det=False):
+        with real(det):
+            seen.append((torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32))
+            yield
+
+    monkeypatch.setattr(rt, "no_tf32", spy)
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    cfg = _cfg(FedConfig, tree, str(tmp_path), "fedavg")
+    cfg.rounds = 1
+    FederatedRunner(cfg, device="cpu", deterministic=deterministic).run()
+    assert seen and set(seen) == {(deterministic or before[0], False)}
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == before

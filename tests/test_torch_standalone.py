@@ -26,6 +26,7 @@ import ccst_tpu.data.loader as jloader
 import ccst_tpu_torch.config as tconfig
 import ccst_tpu_torch.data.lists as tlists
 import ccst_tpu_torch.data.loader as tloader
+from tests.torch_parity import pinned_io_tier  # noqa: F401  (both packages read the same pixels)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DOMAINS = ["art_painting", "cartoon", "photo", "sketch"]
@@ -55,6 +56,10 @@ def _imported_roots(path):
 def test_port_has_sources_to_walk():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {"chip_smoke.py", "ccst_tpu_torch/cli.py", "ccst_tpu_torch/config.py",
+            "ccst_tpu_torch/models/adain_net.py", "ccst_tpu_torch/pipeline/train_decoder.py",
+            "ccst_tpu_torch/privacy/generator.py", "ccst_tpu_torch/privacy/lpips.py",
+            "ccst_tpu_torch/privacy/invert.py", "ccst_tpu_torch/privacy/gan.py",
+            "ccst_tpu_torch/utils/optim.py",
             "ccst_tpu_torch/data/lists.py", "ccst_tpu_torch/data/loader.py",
             "ccst_tpu_torch/native/__init__.py", "ccst_tpu_torch/pipeline/stylize.py",
             "ccst_tpu_torch/federated/runtime.py", "ccst_tpu_torch/federated/data.py",
