@@ -18,9 +18,14 @@ it times ``--steps`` steps (CUDA events, the median of ``--runs`` runs after
 ``--warmup`` steps), traces ``--steps`` more with ``torch.profiler`` (device time a
 step by kernel family, K3 apart; the largest kernels; launches a step; the
 device's idle share, 1 - kernel time / step time) and reads the peak device
-memory. Prints the card's name and power limit, then one JSON object as the
-last line. ``--device cpu`` runs the same steps at the size given (use a tiny
-one): host times only, no device number.
+memory. Then it times the two trainers' grad-free VGG passes of a step (the
+18 convs that K3 runs) three ways, on the same inputs: K3 (the kernel route),
+cuDNN (the autograd route's reflect pad + ``F.conv2d``, TF32 off, under
+``no_grad``: the library's time) and K3's plain version
+(``reflect_conv3x3_reference`` in the kernel route's place). Prints the card's
+name and power limit, then one JSON object as the last line. ``--device cpu``
+runs the same steps at the size given (use a tiny one): host times only, no
+device number.
 """
 from __future__ import annotations
 
@@ -69,6 +74,52 @@ def make_steps(dev, size: int):
             # step_idx 1: gp_every is 4, so no penalty; 0: the penalty
             "gan-train": (lambda: gan.train_step(real, step_idx=1), 8),
             "gan-train gp": (lambda: gan.train_step(real, step_idx=0), 8)}
+
+
+def frozen_passes(dev, size: int):
+    """{case: {route: pass()}}: a step's grad-free VGG passes of each trainer
+    (``train-decoder``, batch 8: the style image's taps and the content's
+    relu4_1, float32; ``invert-train``, batch 16: the style vector in bf16 and
+    the images' perceptual taps in float32) on the kernel route (K3), the
+    autograd route (cuDNN) and the kernel route with K3's plain version."""
+    import torch
+
+    from ccst_tpu_torch.kernels.conv import reflect_conv3x3_reference
+    from ccst_tpu_torch.models import vgg
+
+    g = torch.Generator().manual_seed(1)
+    enc = vgg.init_params(vgg.ENCODER_ARCH, g)
+    images = lambda n: torch.rand((n, size, size, 3), generator=g).to(dev)  # noqa: E731
+    content, style, inv = images(8), images(8), images(16)
+    k32, k16 = (vgg.prepare_params(enc, dt, dev) for dt in (torch.float32, torch.bfloat16))
+    a32, a16 = (vgg.trainable_params(enc, dev, dt, requires_grad=False)
+                for dt in (torch.float32, torch.bfloat16))
+    inv16 = inv.to(torch.bfloat16)
+
+    def plain(fn):
+        def run():
+            real = vgg.reflect_conv3x3
+            vgg.reflect_conv3x3 = lambda x, cw, relu=True: reflect_conv3x3_reference(
+                x, cw.w, cw.b, relu)
+            try:
+                return fn()
+            finally:
+                vgg.reflect_conv3x3 = real
+        return run
+
+    def decoder(k, route):
+        return lambda: (vgg.encoder_taps(k, style, route=route),
+                        vgg.apply_encoder(k, content, route=route))
+
+    def inverter(k16_, k32_, route):
+        return lambda: (vgg.apply_encoder(k16_, inv16, route=route),
+                        vgg.encoder_taps(k32_, inv, route=route))
+
+    return {"train-decoder": {"k3": decoder(k32, "kernel"), "cudnn": decoder(a32, "autograd"),
+                              "plain": plain(decoder(k32, "kernel"))},
+            "invert-train": {"k3": inverter(k16, k32, "kernel"),
+                             "cudnn": inverter(a16, a32, "autograd"),
+                             "plain": plain(inverter(k16, k32, "kernel"))}}
 
 
 def main(argv=None) -> int:
@@ -161,6 +212,15 @@ def main(argv=None) -> int:
         print(f"{case}: {step_ms:.2f} ms a step, {row['img_per_sec']:.1f} img/s"
               + (f", device busy {busy:.2f} ms, idle {100 * row['idle_share']:.1f}%"
                  if on_cuda else ""), flush=True)
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    result["frozen_passes"] = {}
+    with torch.no_grad(), no_tf32():
+        for case, routes in frozen_passes(dev, args.size).items():
+            row = {f"{route}_ms": timed(fn) for route, fn in routes.items()}
+            result["frozen_passes"][case] = row
+            print(f"{case} grad-free passes (18 convs): K3 {row['k3_ms']:.3f} ms, cuDNN "
+                  f"{row['cudnn_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms", flush=True)
     print(json.dumps(result))
     return 0
 

@@ -18,12 +18,17 @@ flags and defaults; every subcommand also takes ``--device`` (default
                             --fusion-mode adain-overall-K3 --network resnet50 ...
   ccst-tpu-torch fed-test   --dataset pacs --target photo ... --checkpoint best [--tent]
 
-``fed-train`` trains the clients one after another on one device, with cuDNN's
+``fed-train`` trains the clients one after another on one device, or with
+``--parallel-clients`` every client at once in one vmapped step, with cuDNN's
 deterministic algorithms unless ``--nondeterministic`` is given (also on
-``fed-test``);
-``--parallel-clients``, ``--client-shards``, ``--data-shards`` and the
-multi-process flags are refused. ``fed-train --test-only`` evaluates the best
-checkpoint (``ccst-tpu`` accepts the flag there and trains anyway).
+``fed-test``). ``--coordinator HOST:PORT --num-procs N --proc-id K`` (or the
+``CCST_COORDINATOR`` / ``CCST_NUM_PROCS`` / ``CCST_PROC_ID`` environment
+variables) launches one rank of an N-process run on ``torch.distributed``
+(``federated/multihost_runtime.py``: the clients split over the ranks,
+``--data-shards D`` ranks splitting each client's batch); ``--client-shards``
+/ ``--data-shards`` above 1 need such a launch. ``fed-train --test-only``
+evaluates the best checkpoint (``ccst-tpu`` accepts the flag there and trains
+anyway).
 
   ccst-tpu-torch train-decoder --dataset pacs --domains art_painting,cartoon,sketch ...
   ccst-tpu-torch invert-train --dataset pacs --source art_painting --loss mse+perceptual ...
@@ -34,9 +39,10 @@ checkpoint (``ccst-tpu`` accepts the flag there and trains anyway).
 
 ``train-decoder`` writes the decoder ``.npz`` that ``ccst-tpu stylize
 --decoder-weights`` also reads; ``invert-eval`` reads ``ccst-tpu
-invert-train``'s checkpoints as well as its own. The four train on one device
-in one process: ``invert-train``'s ``--coordinator`` / ``--num-procs`` are
-refused; ``gan-train`` writes its state dicts to ``gan_{dataset}_{source}.pt``
+invert-train``'s checkpoints as well as its own. ``invert-train`` takes the
+same launch flags as ``fed-train`` (the reference's DDP loop: each rank its
+strided shard of the images, the gradients averaged over the ranks);
+``gan-train`` writes its state dicts to ``gan_{dataset}_{source}.pt``
 (``ccst-tpu`` writes ``.msgpack``).
 
 ``calibrate`` writes the int8 scales file that ``stylize`` of either package
@@ -87,6 +93,36 @@ def _load_engine_params(args):
         print("[warn] no --decoder-weights given; using random decoder init")
         dec = vgg.init_params(vgg.DECODER_ARCH, torch.Generator().manual_seed(1))
     return enc, dec
+
+
+def _env_int(name: str) -> int:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return 0
+    try:
+        return int(raw)
+    except ValueError:
+        raise SystemExit(f"{name}={raw!r} is not an integer")
+
+
+def _multiproc_requested(coordinator: str, num_procs: int) -> bool:
+    """True when a multi-process launch is asked for by the flags or by the
+    CCST_COORDINATOR / CCST_NUM_PROCS environment variables. A bare
+    CCST_PROC_ID does not count: it is most likely stale shell state."""
+    return bool(coordinator or num_procs > 1 or os.environ.get("CCST_COORDINATOR")
+                or _env_int("CCST_NUM_PROCS") > 1)
+
+
+def _maybe_init_multiproc(coordinator: str, num_procs: int, proc_id: int, device: str) -> bool:
+    """Join the process group when a launch is asked for; returns whether it
+    did."""
+    if not _multiproc_requested(coordinator, num_procs):
+        return False
+    from ccst_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator or None, num_procs if num_procs > 0 else None,
+                         proc_id if proc_id >= 0 else None, device=device)
+    return True
 
 
 def cmd_style_bank(args) -> int:
@@ -273,12 +309,26 @@ def cmd_fed_train(args) -> int:
     from ccst_tpu_torch.federated.runtime import FederatedRunner
 
     cfg = _dataclass_from_args(FedConfig, args)
+    if _multiproc_requested(cfg.coordinator, cfg.num_procs):
+        if cfg.mode.lower() == "deepall":
+            raise SystemExit("--mode deepall pools every source into ONE pseudo-client and "
+                             "cannot be split across processes; run it in one process")
+        if cfg.test_only:
+            raise SystemExit("--test-only evaluates in one process; drop the launch flags")
+    multiproc = _maybe_init_multiproc(cfg.coordinator, cfg.num_procs, cfg.proc_id, args.device)
     amp_bank = None
     if cfg.dg_method.lower() == "feddg":
         from ccst_tpu_torch.pipeline.amp_bank import load_amp_bank
 
         amp_bank = load_amp_bank(args.list_root, cfg.dataset, cfg.source_domains,
                                  max_per_domain=64)
+    if multiproc:
+        from ccst_tpu_torch.federated.multihost_runtime import MultihostFedRunner
+
+        runner = MultihostFedRunner(cfg, amp_bank=amp_bank, device=args.device,
+                                    deterministic=not args.nondeterministic)
+        print(json.dumps(runner.run()))
+        return 0
     runner = FederatedRunner(cfg, amp_bank=amp_bank, device=args.device,
                              deterministic=not args.nondeterministic)
     if cfg.test_only:  # ccst-tpu accepts the flag on fed-train and trains anyway
@@ -330,6 +380,8 @@ def cmd_invert_train(args) -> int:
         vgg_weights=args.vgg_weights, loss=args.loss, perc_weight=args.perc_weight,
         coordinator=args.coordinator, num_procs=args.num_procs, proc_id=args.proc_id,
     )
+    # the reference's one DDP entry point (imagenet_reconstruct.py:141-175):
+    # train_inverter joins the process group when the config asks for a launch
     print(json.dumps(train_inverter(cfg, device=args.device)))
     return 0
 
@@ -483,7 +535,7 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--image-size", type=int, default=222)
     p.set_defaults(fn=cmd_amp_bank)
 
-    p = sub.add_parser("fed-train", help="federated training (clients in sequence)")
+    p = sub.add_parser("fed-train", help="federated training")
     _add_dataclass_args(p, FedConfig)
     p.set_defaults(fn=cmd_fed_train)
 
@@ -514,7 +566,8 @@ def main(argv: Optional[list] = None) -> int:
                    help="mse+perceptual = the LPIPS-criterion training variant "
                         "(imagenet_reconstruct_lpips.py)")
     p.add_argument("--perc-weight", type=float, default=0.1)
-    p.add_argument("--coordinator", default="", help="multi-process launch: not ported, refused")
+    p.add_argument("--coordinator", default="",
+                   help="multi-process launch: HOST:PORT of rank 0 (or an init_method URL)")
     p.add_argument("--num-procs", type=int, default=0)
     p.add_argument("--proc-id", type=int, default=-1)
     p.set_defaults(fn=cmd_invert_train)

@@ -2,14 +2,16 @@
 
 The package's own copy of ``ccst_tpu/config.py``, under the same names so a
 reader finds the counterpart: the dataset registry, ``StylizeConfig``,
-``FusionConfig``, ``FedConfig`` and the ImageNet normalization constants.
-``MeshConfig`` is not copied; the port has no device mesh yet. Field names,
+``FusionConfig``, ``FedConfig``, ``MeshConfig`` and the ImageNet
+normalization constants. Field names,
 defaults and the registry's values equal the original's
 (``tests/test_torch_standalone.py`` holds them together), so lists, banks and
 outputs of either package feed the other. ``FedConfig`` keeps the original's
 fields that nothing reads (``momentum``: training is plain SGD;
-``random_horiz_flip``: the flip probability is fixed at 0.5) and its
-mesh / multi-process fields, which the port's CLI refuses.
+``random_horiz_flip``: the flip probability is fixed at 0.5). Its mesh and
+multi-process fields drive ``parallel/fed_mesh.py`` and
+``federated/multihost_runtime.py``, where a mesh is a grid of
+``torch.distributed`` ranks rather than of local devices.
 """
 from __future__ import annotations
 
@@ -188,6 +190,32 @@ class FedConfig:
     @property
     def source_domains(self) -> Tuple[str, ...]:
         return tuple(d for d in self.spec.domains if d != self.target)
+
+
+@dataclass
+class MeshConfig:
+    """Device mesh layout. axes sized 1 are free."""
+
+    client: int = 1
+    data: int = -1                    # -1: all remaining devices
+    model: int = 1
+
+    def axis_sizes(self, n_devices: int) -> Dict[str, int]:
+        sizes = {"client": self.client, "data": self.data, "model": self.model}
+        fixed = 1
+        free = None
+        for k, v in sizes.items():
+            if v == -1:
+                if free is not None:
+                    raise ValueError("only one mesh axis may be -1")
+                free = k
+            else:
+                fixed *= v
+        if free is not None:
+            if n_devices % fixed:
+                raise ValueError(f"{n_devices} devices not divisible by {fixed}")
+            sizes[free] = n_devices // fixed
+        return sizes
 
 
 def asdict(cfg: Any) -> Dict[str, Any]:

@@ -11,15 +11,14 @@ The permutation table is the package's own copy of the reference's
 as ``retrieve_permutations`` does (data/ImageLoader.py:102-106, the min == 1
 rebase). The draw (:func:`sample_orders`, on the host from an explicit
 ``torch.Generator``) is split from the shuffle (:func:`tile_and_permute`, one
-``torch.gather`` on the images' device; the JAX package's one-hot matmul was a
-workaround for its compiler).
+``torch.gather`` on the images' device, pure, so ``torch.func.vmap`` applies
+one client's orders a slice; the JAX package's one-hot matmul was a workaround
+for its compiler).
 """
 from __future__ import annotations
 
 import os
 from functools import lru_cache
-from typing import Tuple
-
 import numpy as np
 import torch
 
@@ -61,9 +60,10 @@ def tile_and_permute(images: torch.Tensor, orders: torch.Tensor, perms: torch.Te
     th, tw = h // GRID, w // GRID
     tiles = (images.reshape(n, GRID, th, GRID, tw, c).permute(0, 1, 3, 2, 4, 5)
              .reshape(n, N_TILES, th * tw * c))
-    identity = torch.arange(N_TILES, device=perms.device)[None, :]
+    perms = perms.to(images.device, non_blocking=True)
+    identity = torch.arange(N_TILES, device=images.device)[None, :]
     table = torch.cat([identity, perms], dim=0)  # (P + 1, 9)
-    sel = table[orders.to(table.device)].to(images.device)  # (N, 9)
+    sel = table[orders.to(images.device, non_blocking=True)]  # (N, 9)
     shuffled = torch.gather(tiles, 1, sel[:, :, None].expand(-1, -1, tiles.shape[2]))
     return (shuffled.reshape(n, GRID, GRID, th, tw, c).permute(0, 1, 3, 2, 4, 5)
             .reshape(n, h, w, c))
@@ -76,12 +76,3 @@ def sample_orders(generator: torch.Generator, n: int, n_perms: int = 30,
     orders = torch.randint(0, n_perms + 1, (n,), generator=generator)
     whole = torch.rand((n,), generator=generator) < bias_whole_image
     return torch.where(whole, torch.zeros_like(orders), orders)
-
-
-def jigsaw_batch(generator: torch.Generator, images: torch.Tensor, n_perms: int = 30,
-                 bias_whole_image: float = 0.9) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(shuffled images, order labels on the images' device) for one batch."""
-    perms = torch.from_numpy(permutation_set(n_perms))
-    orders = sample_orders(generator, images.shape[0], n_perms, bias_whole_image)
-    labels = orders.to(images.device, non_blocking=True)
-    return tile_and_permute(images, orders, perms), labels

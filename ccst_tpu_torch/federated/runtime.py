@@ -1,11 +1,13 @@
 """Federated training runtime: round loop, evaluation, checkpoints.
 
-Counterpart of ``ccst_tpu/federated/runtime.py`` in its sequential mode (the
-reference's main loop, federated/fed_run.py:649-766):
+Counterpart of ``ccst_tpu/federated/runtime.py`` (the reference's main loop,
+federated/fed_run.py:649-766):
 
   round r in [resume, rounds):
     - each client trains ``wk_iters`` local epochs from its current state
-      (fresh plain SGD each round, fed_run.py:657), one client after another;
+      (fresh plain SGD each round, fed_run.py:657): one client after another,
+      or, with ``parallel_clients``, every client at once in one vmapped step
+      (``parallel/fed_mesh.py``);
     - aggregate (fedavg / fedbn / fedprox / adafea / deepall) -> server and
       refreshed clients;
     - validate the server on every source client's val split, test it on the
@@ -13,26 +15,29 @@ reference's main loop, federated/fed_run.py:649-766):
     - checkpoint ``latest`` every ``save_freq`` rounds; track ``best`` by mean
       source-val accuracy with its target-test accuracy (fed_run.py:734-766).
 
-The state is seeded from ``cfg.seed`` and every round draws from a
-``torch.Generator`` seeded ``cfg.seed * 100003 + round_idx``, as the JAX
-runtime seeds its PRNG key. The two streams differ, so runs of the two
-packages agree in distribution, not bit for bit; with the random transform
-taken out they agree round for round (``tests/test_torch_federated.py``).
-Float32 throughout, with TF32 off on the card for the runner's calls, and by
-default cuDNN's deterministic algorithms, so that a step gives the same bits
-from run to run (``deterministic=False`` trades that for a faster step;
-``PERF.md`` has the cost).
+The state is seeded from ``cfg.seed``. In sequence, every round draws from
+one ``torch.Generator`` seeded ``cfg.seed * 100003 + round_idx``, as the JAX
+runtime seeds its PRNG key; in parallel, each client draws from its own
+(``fed_mesh.client_seed``), so a multi-process run
+(``federated/multihost_runtime.py``) draws what one process draws. The
+streams differ from JAX's, so runs of the two packages agree in
+distribution, not bit for bit; with the random transform taken out they agree
+round for round (``tests/test_torch_runtime.py``). Float32 throughout, with
+TF32 off on the card for the runner's calls, and by default cuDNN's
+deterministic algorithms, so that a step gives the same bits from run to run
+(``deterministic=False`` trades that for a faster step; ``PERF.md`` has the
+cost).
 
 Kept gaps of the reference: ``resume`` restores ``best`` twice; ``momentum``
-and ``random_horiz_flip`` are not read. Clients run in sequence:
-``parallel_clients``, the mesh shards and the multi-process launch are not
-ported (ROADMAP Queue 1 item 8) and raise ``SystemExit``.
+and ``random_horiz_flip`` are not read. A mesh of ``client_shards *
+data_shards`` > 1 ranks needs a multi-process launch; asked for in one
+process it raises ``SystemExit`` naming the launch.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,13 @@ from ccst_tpu_torch.data.loader import Batch, ImageBatchLoader
 from ccst_tpu_torch.federated.aggregate import aggregate
 from ccst_tpu_torch.federated.data import ClientData, build_client_data
 from ccst_tpu_torch.federated.train_ops import make_eval_step, make_train_step
+from ccst_tpu_torch.parallel.fed_mesh import (
+    FedMesh,
+    ParallelFedTrainer,
+    client_generators,
+    stack_step_batches,
+    stack_trees,
+)
 from ccst_tpu_torch.models.classifiers import get_network, init_weights
 from ccst_tpu_torch.models.convert_resnet import from_jax
 from ccst_tpu_torch.utils.checkpoint import checkpoint_paths, load_checkpoint, save_checkpoint
@@ -49,18 +61,6 @@ from ccst_tpu_torch.utils.metrics import MetricsLogger
 from ccst_tpu_torch.utils.precision import no_tf32
 
 State = Dict[str, torch.Tensor]
-
-
-def refuse_parallel(cfg: FedConfig) -> None:
-    """Only sequential clients on one device are ported."""
-    asked = [name for name, on in (
-        ("--parallel-clients", cfg.parallel_clients), ("--client-shards", cfg.client_shards > 1),
-        ("--data-shards", cfg.data_shards > 1), ("--coordinator", bool(cfg.coordinator)),
-        ("--num-procs", cfg.num_procs > 0)) if on]
-    if asked:
-        raise SystemExit(f"ccst-tpu-torch fed-train: {', '.join(asked)} not ported yet "
-                         "(ROADMAP Queue 1 item 8: parallel clients and multi-process); "
-                         "clients run in sequence on one device")
 
 
 def _as_state(tree: Dict[str, Any], device: torch.device) -> State:
@@ -87,7 +87,6 @@ class FederatedRunner:
         device: Any = "cuda",
         deterministic: bool = True,
     ):
-        refuse_parallel(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         # cuDNN's deterministic algorithms: a step gives the same bits from run
@@ -119,13 +118,12 @@ class FederatedRunner:
         self.server: State = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
         self.client_states: List[State] = [self._copy(self.server) for _ in range(self.n_clients)]
 
-        self._train_step = make_train_step(
-            self.model, n_classes=spec.num_classes, image_size=cfg.image_size, lr=cfg.lr,
-            dg_method=cfg.dg_method, mode=cfg.mode, mu=cfg.mu, jig_weight=cfg.jig_weight,
-            jigsaw_n_classes=cfg.jigsaw_n_classes, bias_whole_image=cfg.bias_whole_image,
-            meta_step_size=cfg.meta_step_size, clip_value=cfg.clip_value,
-            min_scale=cfg.min_scale, max_scale=cfg.max_scale,
-        )
+        self._train_step = self.make_step(self.model)
+        self._ptrainer = None
+        if cfg.client_shards * cfg.data_shards > 1:
+            FedMesh(cfg.client_shards, cfg.data_shards)  # raises in one process
+        if cfg.parallel_clients:
+            self._ptrainer = ParallelFedTrainer(self._train_step, cfg.mode, self.weights)
         # --in-test: every BatchNorm becomes an affine InstanceNorm that reuses
         # the BN weight / bias under the same names (fed_run.py:218-232)
         eval_model = self.model
@@ -137,6 +135,17 @@ class FederatedRunner:
         self._eval_step = make_eval_step(eval_model, image_size=cfg.image_size)
         self.start_round = 0
         self.best: Dict[str, Any] = {"val_acc_mean": -1.0, "round": -1, "test_acc": None}
+        self.trace_dir = cfg.trace_dir or None
+
+    def make_step(self, model: torch.nn.Module, **kw):
+        """The configured local step of ``model`` (``train_ops.make_train_step``)."""
+        cfg = self.cfg
+        return make_train_step(
+            model, n_classes=cfg.spec.num_classes, image_size=cfg.image_size, lr=cfg.lr,
+            dg_method=cfg.dg_method, mode=cfg.mode, mu=cfg.mu, jig_weight=cfg.jig_weight,
+            jigsaw_n_classes=cfg.jigsaw_n_classes, bias_whole_image=cfg.bias_whole_image,
+            meta_step_size=cfg.meta_step_size, clip_value=cfg.clip_value,
+            min_scale=cfg.min_scale, max_scale=cfg.max_scale, **kw)
 
     @staticmethod
     def _copy(state: State) -> State:
@@ -191,6 +200,32 @@ class FederatedRunner:
                        "train_acc": correct / max(count, 1.0),
                        "loader_wait_seconds": wait}
 
+    def stacked_batches(self, loaders) -> Iterator[Dict[str, torch.Tensor]]:
+        """The clients' batches stacked a local step (``fed_mesh.
+        stack_step_batches``), with the FedDG bank beside them, unstacked."""
+        for bd in stack_step_batches(loaders, self.batch_dict):
+            if self.amp_bank is not None:
+                bd["amp_bank"] = self.amp_bank
+            yield bd
+
+    def train_parallel(self, round_idx: int) -> Tuple[Dict[str, Dict[str, float]], float]:
+        """``wk_iters`` local epochs of every client at once, then the
+        aggregation: (train metrics a client, the host's seconds blocked on
+        the loaders)."""
+        stacked = stack_trees(self.client_states)
+        gens = client_generators(self.cfg.seed, round_idx, range(self.n_clients))
+        wait = 0.0
+        for _ in range(self.cfg.wk_iters):
+            batches = self.stacked_batches([self.clients[ci].train
+                                            for ci in range(self.n_clients)])
+            stacked, pm = self._ptrainer.run_epoch(stacked, self.server, batches, gens)
+            wait += pm["loader_wait_seconds"]
+        self.server, self.client_states = self._ptrainer.communicate(stacked)
+        metrics = {self.clients[ci].name: {"train_loss": float(pm["train_loss"][ci]),
+                                           "train_acc": float(pm["train_acc"][ci])}
+                   for ci in range(self.n_clients)}
+        return metrics, wait
+
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
@@ -244,30 +279,44 @@ class FederatedRunner:
     # round loop
     # ------------------------------------------------------------------
 
-    def run_round(self, round_idx: int) -> Dict[str, Any]:
+    def train_round(self, round_idx: int) -> Tuple[Dict[str, Dict[str, float]], float]:
+        """Every client's ``wk_iters`` local epochs, then the aggregation into
+        ``server`` and ``client_states``: (train metrics a client, the host's
+        seconds blocked on the loaders)."""
         cfg = self.cfg
-        t0 = time.perf_counter()
-        gen = torch.Generator().manual_seed(cfg.seed * 100003 + round_idx)
+        if self._ptrainer is not None:
+            return self.train_parallel(round_idx)
         train_metrics: Dict[str, Dict[str, float]] = {}
+        gen = torch.Generator().manual_seed(cfg.seed * 100003 + round_idx)
         for _ in range(cfg.wk_iters):
             for ci in range(self.n_clients):
                 self.client_states[ci], m = self.train_client_epoch(
                     ci, self.client_states[ci], gen)
                 train_metrics[self.clients[ci].name] = m
+        wait = sum(m["loader_wait_seconds"] for m in train_metrics.values())
         self.server, self.client_states = aggregate(cfg.mode, self.client_states, self.weights)
+        return train_metrics, wait
 
+    def evaluate_round(self) -> Tuple[float, float]:
+        """(mean val accuracy over the source clients, target test accuracy)
+        of the server."""
         eval_state = self.server_eval_state()
-        val_clients = self.clients if cfg.mode.lower() != "deepall" else self.clients[1:]
+        val_clients = self.clients if self.cfg.mode.lower() != "deepall" else self.clients[1:]
         val_accs = [self.evaluate(eval_state, c.val)[1] for c in val_clients]
-        val_acc_mean = float(np.mean(val_accs)) if val_accs else 0.0
         _, test_acc = self.evaluate(eval_state, self.test_loader)
+        return (float(np.mean(val_accs)) if val_accs else 0.0), test_acc
 
+    def run_round(self, round_idx: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        train_metrics, wait = self.train_round(round_idx)
+        val_acc_mean, test_acc = self.evaluate_round()
         record = {
             "round": round_idx,
             "val_acc_mean": val_acc_mean,
             "test_acc": test_acc,
             "seconds": time.perf_counter() - t0,
-            "loader_wait_seconds": sum(m["loader_wait_seconds"] for m in train_metrics.values()),
+            "loader_wait_seconds": wait,
             **{f"train_acc/{k}": v["train_acc"] for k, v in train_metrics.items()},
             **{f"train_loss/{k}": v["train_loss"] for k, v in train_metrics.items()},
         }
@@ -290,7 +339,7 @@ class FederatedRunner:
         with no_tf32(self.deterministic):
             if self.cfg.resume:
                 self.resume()
-            with maybe_trace(self.cfg.trace_dir or None):
+            with maybe_trace(self.trace_dir):
                 for r in range(self.start_round, self.cfg.rounds):
                     self.run_round(r)
         self.logger.log("done", **self.best)

@@ -7,36 +7,54 @@ percentile muting (utils/rsc_utils.py:32-75), the FedProx proximal term
 against the server from local step 1 on (fed_run.py:163-169), and FedDG's
 first-order meta step on a frequency-augmented view (fed_run.py:90-146).
 
-A client state is the model's state dict (parameters and buffers); a step is
-a plain function of (state, server state, batch, generator, step index) that
-runs the model through ``torch.func.functional_call`` and returns a new state
-dict: plain SGD built fresh each round like the reference, so there is no
-optimizer state. ``batch`` holds NHWC "images" in [0, 1] on the device,
-"labels" and "mask" (1 for a real row, 0 for padding); FedDG also needs
-"amp_bank" (K, C, H, W). Every random draw (crop boxes, flips, Jigsaw orders,
-FedDG picks and ratios, MixStyle's gate, lambda and permutation) comes from
-the step's ``generator``, on the host.
+A client state is the model's state dict (parameters and buffers); plain SGD
+built fresh each round like the reference, so there is no optimizer state.
+``make_train_step`` returns a :class:`TrainStep` in two halves:
+
+- ``draw(generator, batch) -> draws``: every random draw of the step, on the
+  host from the generator, in this order: Jigsaw's orders or FedDG's picks and
+  ratios, the train transform's crop boxes then flips (not FedDG's), then
+  MixStyle's gate, lambda and permutation for each of its stages;
+- ``apply(state, server_state, batch, draws, step_idx) -> (state,
+  StepMetrics)``: a pure function of its inputs, which runs the model through
+  ``torch.func.functional_call`` and takes the gradient with
+  ``torch.func.grad_and_value``, so ``torch.func.vmap`` can step a stack of
+  clients at once (``parallel/fed_mesh.py``; the JAX step takes a key a
+  client for the same reason).
+
+Calling the step, ``step(state, server_state, batch, generator, step_idx)``,
+is ``apply`` of ``draw``. ``batch`` holds NHWC "images" in [0, 1] on the
+device, "labels" and "mask" (1 for a real row, 0 for padding); FedDG also
+needs "amp_bank" (K, C, H, W).
 
 Train-mode BatchNorm updates its running statistics in place, so a step works
-on copies of the buffers: a batch whose mask is all 0 then leaves parameters
-and statistics as they were (the padding rows do enter the batch statistics
-of a real batch, as in JAX). The returned metrics are 0-d tensors on the
-device; nothing here waits for the device.
+on copies of the buffers, handed to the gradient transform as an input of its
+own (functorch refuses a mutation of a captured tensor): a batch whose mask is
+all 0 then leaves parameters and statistics as they were (the padding rows do
+enter the batch statistics of a real batch, as in JAX). The returned metrics
+are 0-d tensors on the device; nothing here waits for the device.
+
+``data_reduce`` (``parallel/fed_mesh.py::DataGroup``) makes the step one
+rank's share of a batch split over a data group of ranks: the masked means
+divide by the group's row count, and the gradients, the BatchNorm batch
+statistics (the model's BatchNorm swapped for ``GroupBatchNorm``) and the
+metrics are summed over the group inside the step.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.func import functional_call
+from torch.func import functional_call, grad_and_value
 
-from ccst_tpu_torch.data.jigsaw import jigsaw_batch
-from ccst_tpu_torch.ops.fft_aug import feddg_batch_augment
-from ccst_tpu_torch.ops.image import eval_transform, train_transform
+from ccst_tpu_torch.data import jigsaw
+from ccst_tpu_torch.ops import fft_aug
+from ccst_tpu_torch.ops.image import eval_transform, sample_train_transform, train_transform
 
 State = Dict[str, torch.Tensor]
+Draws = Dict[str, Any]
 RSC_PERCENT = (1 - 1 / 3) * 100  # mute the top third (rsc_utils.py)
 
 
@@ -53,8 +71,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(1, labels[:, None].long())[:, 0]
 
 
-def _masked_mean(per_example: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(per_example * mask) / torch.clamp(torch.sum(mask), min=1.0)
+def _masked_mean(per_example: torch.Tensor, mask: torch.Tensor,
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over the real rows; ``count`` is their number when it is not
+    this batch's own (a data group's rows)."""
+    count = torch.sum(mask) if count is None else count
+    return torch.sum(per_example * mask) / torch.clamp(count, min=1.0)
 
 
 def _masked_percentile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
@@ -66,7 +88,8 @@ def _masked_percentile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.T
     lo = torch.clamp(torch.floor(r).long(), 0, x.shape[0] - 1)
     hi = torch.minimum(torch.clamp(lo + 1, min=0), torch.clamp(n.long() - 1, min=0))
     w = (r - lo).to(x.dtype)
-    x_lo, x_hi = xs[lo], xs[hi]
+    # gathers, not xs[lo]: a 0-d index tensor is read on the host, which vmap refuses
+    x_lo, x_hi = xs.gather(0, lo.view(1))[0], xs.gather(0, hi.view(1))[0]
     return x_lo + w * torch.where(w > 0, x_hi - x_lo, torch.zeros_like(x_lo))
 
 
@@ -97,10 +120,13 @@ def _rsc_logits(model, state: State, images, labels, n_classes: int, mask_valid)
     the prediction change. ``mask_valid`` keeps padding out of the batch
     percentile."""
     feats = forward(model, state, images, True, return_features=True)
-    onehot = F.one_hot(labels.long(), n_classes).to(feats.dtype)
-    f = feats.detach().requires_grad_(True)
-    head_w = {k: v.detach() for k, v in state.items() if "classifier" in k}
-    g = torch.autograd.grad(torch.sum(_head(head_w, f) * onehot), f)[0]
+    # F.one_hot reads its input's max on the host, which vmap refuses
+    onehot = (labels.long()[:, None] == torch.arange(n_classes, device=labels.device)
+              ).to(feats.dtype)
+    # d/df sum(head(f) * onehot) of the linear head: onehot @ W, the product
+    # autograd forms for it, written out (it runs under the step's transforms)
+    name = "class_classifier" if "class_classifier.weight" in state else "classifier"
+    g = onehot @ state[f"{name}.weight"].detach()
     pct_f = torch.quantile(g, RSC_PERCENT / 100.0, dim=1, keepdim=True)
     mask_f = (g < pct_f).to(feats.dtype)
     with torch.no_grad():
@@ -114,6 +140,20 @@ def _rsc_logits(model, state: State, images, labels, n_classes: int, mask_valid)
 
 def _prox_term(params: State, server: State) -> torch.Tensor:
     return sum(torch.sum(torch.square(p.float() - server[k].float())) for k, p in params.items())
+
+
+class TrainStep:
+    """``draw(generator, batch) -> draws`` on the host and the pure
+    ``apply(state, server_state, batch, draws, step_idx) -> (state,
+    StepMetrics)``; calling it runs both."""
+
+    def __init__(self, draw: Callable[[torch.Generator, Dict[str, torch.Tensor]], Draws],
+                 apply: Callable):
+        self.draw, self.apply = draw, apply
+
+    def __call__(self, state: State, server_state: State, batch, generator: torch.Generator,
+                 step_idx: int) -> Tuple[State, StepMetrics]:
+        return self.apply(state, server_state, batch, self.draw(generator, batch), step_idx)
 
 
 def make_train_step(
@@ -132,89 +172,141 @@ def make_train_step(
     clip_value: float = 1.0,
     min_scale: float = 0.8,
     max_scale: float = 1.0,
-) -> Callable:
-    """One client-local SGD step:
-    ``step(state, server_state, batch, generator, step_idx) -> (state, StepMetrics)``."""
+    data_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    data_size: int = 1,
+) -> TrainStep:
+    """One client-local SGD step (module docstring). ``data_reduce`` sums a
+    tensor over a data group of ``data_size`` ranks, each holding its share of
+    the batch."""
     dg = dg_method.lower()
     is_prox = mode.lower() == "fedprox"
     param_keys, buffer_keys = model_keys(model)
+    n_mix = getattr(model, "n_mix", 0) if dg == "mixstyle" else 0
+    reduce = data_reduce if data_reduce is not None else (lambda t: t)
+    if data_reduce is not None and dg in ("rsc", "mixstyle"):
+        raise ValueError(f"{dg_method} mixes rows across the batch (RSC's batch percentile, "
+                         "MixStyle's permutation): a batch split over data shards is not "
+                         "supported for it")
 
-    def prepare(images, generator):
-        return train_transform(generator, images, image_size, min_scale, max_scale)
+    def draw(generator: torch.Generator, batch) -> Draws:
+        n, h, w, _ = batch["images"].shape
+        draws: Draws = {}
+        if dg == "jigsaw":
+            draws["orders"] = jigsaw.sample_orders(generator, n, jigsaw_n_classes,
+                                                   bias_whole_image)
+        if dg == "feddg":
+            draws["picks"], draws["ratios"] = fft_aug.sample_feddg_draws(
+                generator, n, batch["amp_bank"].shape[0])
+        else:
+            draws["crop"] = sample_train_transform(generator, n, h, w, min_scale, max_scale)
+        if n_mix:
+            draws["mix"] = [model.mix.sample(generator, n) for _ in range(n_mix)]
+        return draws
 
-    def losses(params: State, buffers: State, old_buffers: State, batch, generator, mask,
-               labels):
-        """(loss, logits for the metrics, jig correct count); ``buffers`` (copies
-        of ``old_buffers``) take the forward's new running statistics."""
+    def prepare(images, draws: Draws):
+        return train_transform(draws["crop"], images, image_size, min_scale, max_scale)
+
+    def losses(params: State, buffers: State, old_buffers: State, batch, draws: Draws, mask,
+               labels, count):
+        """(loss, (logits for the metrics, jig correct count)); ``buffers``
+        (copies of ``old_buffers``) take the forward's new running
+        statistics."""
         state = {**params, **buffers}
         jig_corr = torch.zeros((), device=mask.device)
         if dg == "jigsaw":
             # the reference's model reads the permuted grid image for BOTH heads
             # (fed_run.py:58); the grid goes through the train transform
-            jig_images, jig_labels = jigsaw_batch(generator, batch["images"], jigsaw_n_classes,
-                                                  bias_whole_image)
-            logits, jig_logits = forward(model, state, prepare(jig_images, generator), True)
-            loss = (_masked_mean(cross_entropy(logits, labels), mask)
-                    + jig_weight * _masked_mean(cross_entropy(jig_logits, jig_labels), mask))
+            perms = torch.from_numpy(jigsaw.permutation_set(jigsaw_n_classes))
+            jig_images = jigsaw.tile_and_permute(batch["images"], draws["orders"], perms)
+            jig_labels = draws["orders"].to(mask.device, non_blocking=True)
+            logits, jig_logits = forward(model, state, prepare(jig_images, draws), True)
+            loss = (_masked_mean(cross_entropy(logits, labels), mask, count)
+                    + jig_weight * _masked_mean(cross_entropy(jig_logits, jig_labels), mask,
+                                                count))
             jig_corr = torch.sum((jig_logits.argmax(1) == jig_labels).float() * mask)
         elif dg == "rsc":
-            images = prepare(batch["images"], generator)
+            images = prepare(batch["images"], draws)
             logits = _rsc_logits(model, state, images, labels, n_classes, mask)
-            loss = _masked_mean(cross_entropy(logits, labels), mask)
-        elif dg == "feddg":
-            images = eval_transform(batch["images"], image_size)
-            freq = eval_transform(
-                feddg_batch_augment(generator, batch["images"], batch["amp_bank"], L=0.0),
-                image_size)
-            logits = forward(model, state, images, True)
-            l_inner = _masked_mean(cross_entropy(logits, labels), mask)
-            grads = torch.autograd.grad(l_inner, list(params.values()), retain_graph=True,
-                                        allow_unused=True)
-            # FOMAML (fed_run.py:110): the inner gradients are constants
-            fast = {k: (p if g is None else
-                        p - meta_step_size * torch.clamp(g.detach(), -clip_value, clip_value))
-                    for (k, p), g in zip(params.items(), grads)}
-            # the outer pass's statistics are discarded: it runs on copies
-            outer_buffers = {k: v.clone() for k, v in old_buffers.items()}
-            lg_out = forward(model, {**fast, **outer_buffers}, freq, True)
-            loss = l_inner + _masked_mean(cross_entropy(lg_out, labels), mask)
-        else:  # no_DG / mixstyle (MixStyle draws inside the model)
-            kw = {"generator": generator} if dg == "mixstyle" else {}
-            logits = forward(model, state, prepare(batch["images"], generator), True, **kw)
-            loss = _masked_mean(cross_entropy(logits, labels), mask)
-        return loss, logits, jig_corr
+            loss = _masked_mean(cross_entropy(logits, labels), mask, count)
+        else:  # no_DG / mixstyle
+            kw = {"mix_draws": draws["mix"]} if n_mix else {}
+            logits = forward(model, state, prepare(batch["images"], draws), True, **kw)
+            loss = _masked_mean(cross_entropy(logits, labels), mask, count)
+        return loss, (logits, jig_corr)
 
-    def step(state: State, server_state: State, batch, generator: torch.Generator,
-             step_idx: int) -> Tuple[State, StepMetrics]:
+    def feddg_grads(params: State, buffers: State, old_buffers: State, batch, draws: Draws,
+                    mask, labels, count):
+        """FedDG's loss l_inner(p) + l_outer(p - a clip(grad l_inner)) and its
+        gradient. The inner gradient is a constant (FOMAML, fed_run.py:110), so
+        the gradient is grad l_inner(p) + grad l_outer at the fast weights:
+        two gradient transforms side by side, neither nested in the other."""
+        images = eval_transform(batch["images"], image_size)
+        freq = eval_transform(fft_aug.feddg_augment(batch["images"], batch["amp_bank"],
+                                                    draws["picks"], draws["ratios"], L=0.0),
+                              image_size)
+
+        def inner(p: State, bufs: State):
+            lg = forward(model, {**p, **bufs}, images, True)
+            return _masked_mean(cross_entropy(lg, labels), mask, count), lg
+
+        def outer(fast: State, bufs: State):
+            lg = forward(model, {**fast, **bufs}, freq, True)
+            return _masked_mean(cross_entropy(lg, labels), mask, count)
+
+        g_in, (l_inner, logits) = grad_and_value(inner, has_aux=True)(params, buffers)
+        g_in = {k: reduce(g) for k, g in g_in.items()}
+        fast = {k: p - meta_step_size * torch.clamp(g_in[k], -clip_value, clip_value)
+                for k, p in params.items()}
+        # the outer pass's statistics are discarded: it runs on copies
+        outer_buffers = {k: v.clone() for k, v in old_buffers.items()}
+        g_out, l_outer = grad_and_value(outer)(fast, outer_buffers)
+        return ({k: g_in[k] + reduce(g_out[k]) for k in params}, l_inner + l_outer,
+                (logits, torch.zeros((), device=mask.device)))
+
+    def apply(state: State, server_state: State, batch, draws: Draws, step_idx: int
+              ) -> Tuple[State, StepMetrics]:
         mask = batch["mask"].float()
         labels = batch["labels"]
-        params = {k: state[k].detach().requires_grad_(True) for k in param_keys}
+        count = reduce(torch.sum(mask)) if data_reduce is not None else None
+        params = {k: state[k] for k in param_keys}
         buffers_before = {k: state[k] for k in buffer_keys}
         buffers = {k: v.clone() for k, v in buffers_before.items()}
+
+        def prox(params: State):
+            return (mu / 2.0) * _prox_term(params, server_state)
+
         with torch.enable_grad():
-            loss, logits, jig_corr = losses(params, buffers, buffers_before, batch, generator,
-                                            mask, labels)
+            if dg == "feddg":
+                grads, loss, (logits, jig_corr) = feddg_grads(
+                    params, buffers, buffers_before, batch, draws, mask, labels, count)
+            else:
+                grads, (loss, (logits, jig_corr)) = grad_and_value(losses, has_aux=True)(
+                    params, buffers, buffers_before, batch, draws, mask, labels, count)
+                grads = {k: reduce(g) for k, g in grads.items()}
             if is_prox and step_idx > 0:
-                loss = loss + (mu / 2.0) * _prox_term(params, server_state)
-            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        any_valid = torch.sum(mask) > 0
+                # after the group sum: every rank of a data group adds the
+                # whole term once, and its share to the loss that is summed
+                g_prox, l_prox = grad_and_value(prox)(params)
+                grads = {k: g + g_prox[k] for k, g in grads.items()}
+                loss = loss + l_prox / data_size
         with torch.no_grad():
-            new_state = {k: (p.detach() if g is None else
-                             torch.where(any_valid, p - lr * g.to(p.dtype), p))
-                         for (k, p), g in zip(params.items(), grads)}
+            n_valid = torch.sum(mask) if count is None else count
+            any_valid = n_valid > 0
+            new_state = {k: torch.where(any_valid, p - lr * grads[k].to(p.dtype), p)
+                         for k, p in params.items()}
             for k in buffer_keys:
                 new_state[k] = torch.where(any_valid, buffers[k], buffers_before[k])
             active = any_valid.float()
             metrics = StepMetrics(
-                loss=loss.detach() * active,
-                correct=torch.sum((logits.argmax(1) == labels).float() * mask),
-                count=torch.sum(mask),
-                jig_correct=jig_corr.detach(),
+                loss=reduce(loss.detach()) * active,
+                correct=reduce(torch.sum((logits.argmax(1) == labels).float() * mask)),
+                count=n_valid,
+                jig_correct=reduce(jig_corr.detach()),
                 active=active,
             )
         return {k: new_state[k] for k in state}, metrics
 
-    return step
+    return TrainStep(draw, apply)
 
 
 def make_eval_step(model: nn.Module, *, image_size: int):

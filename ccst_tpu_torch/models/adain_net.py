@@ -78,13 +78,18 @@ def decoder_leaves(decoder: vgg.Trainable):
 
 def adain_train_step(encoder: FrozenEncoder, decoder: vgg.Trainable, content: torch.Tensor,
                      style: torch.Tensor, lr: float = 1e-4, style_weight: float = 10.0,
-                     content_weight: float = 1.0) -> torch.Tensor:
-    """One SGD step on the decoder, in place; returns the loss. The JAX
-    step's ``axis_name`` (a pmean over a mesh) is not ported."""
+                     content_weight: float = 1.0, group=None) -> torch.Tensor:
+    """One SGD step on the decoder, in place; returns the loss. With
+    ``group`` (a ``torch.distributed`` process group, JAX's ``axis_name``)
+    the gradients and the loss are averaged over its ranks."""
     lc, ls = adain_losses(encoder, decoder, content, style)
     loss = content_weight * lc + style_weight * ls
     leaves = decoder_leaves(decoder)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = list(torch.autograd.grad(loss, leaves))
+    if group is not None:
+        from ccst_tpu_torch.parallel.multihost import all_reduce_mean
+
+        *grads, loss = all_reduce_mean(grads + [loss.detach()], group)
     with torch.no_grad():
         for p, g in zip(leaves, grads):
             p.sub_(lr * g)

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ccst_tpu_torch.models.layers import (
+    MixDraws,
     MixStyle,
     StatFreeNorm,
     avg_pool,
@@ -97,7 +98,8 @@ class ResNet(nn.Module):
 
     ``jigsaw=True`` adds the 31-way head and returns (class_logits,
     jig_logits); ``mixstyle_layers`` inserts MixStyle after the named stages,
-    which draw from the ``generator`` given to ``forward`` (none: identity).
+    which apply the ``mix_draws`` given to ``forward`` in order, one a stage
+    (none: identity); ``n_mix`` is their number.
     """
 
     def __init__(self, classes: int, block: str = "basic",
@@ -114,6 +116,7 @@ class ResNet(nn.Module):
         self.bn1 = make_norm(norm, 64)
         self.mix = MixStyle(mixstyle_p, mixstyle_alpha) if mixstyle_layers else None
         self.mixstyle_layers = tuple(mixstyle_layers)
+        self.n_mix = sum(f"layer{i}" in self.mixstyle_layers for i in range(1, 5))
         self.stages = []
         inplanes = 64
         for stage, (planes, n_blocks) in enumerate(zip((64, 128, 256, 512), stage_sizes), 1):
@@ -135,14 +138,15 @@ class ResNet(nn.Module):
         return ResNet(**{**self.config, "norm": norm})
 
     def forward(self, x: torch.Tensor, return_features: bool = False,
-                generator: Optional[torch.Generator] = None):
+                mix_draws: Optional[Sequence[MixDraws]] = None):
+        draws = iter(mix_draws or ())
         x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool_same(x, 3, 2, 1)
         for stage, names in enumerate(self.stages, 1):
             for name in names:
                 x = getattr(self, name)(x)
             if self.mix is not None and f"layer{stage}" in self.mixstyle_layers:
-                x = self.mix(x, generator)
+                x = self.mix(x, next(draws, None))
         x = global_avg_pool(x)
         if return_features:
             return x  # pooled penultimate vector (RSC's featurizer output)
@@ -181,6 +185,7 @@ class DenseNet(nn.Module):
         self.norm0 = StatFreeNorm()
         self.block_config = tuple(block_config)
         self.mix = MixStyle(0.5, 0.1) if mixstyle else None
+        self.n_mix = min(2, len(self.block_config)) if mixstyle else 0
         nf = num_init_features
         for i, n_layers in enumerate(self.block_config):
             for j in range(n_layers):
@@ -197,13 +202,14 @@ class DenseNet(nn.Module):
             self.jig_classifier = nn.Linear(nf, JIGSAW_CLASSES)
 
     def forward(self, x: torch.Tensor, return_features: bool = False,
-                generator: Optional[torch.Generator] = None):
+                mix_draws: Optional[Sequence[MixDraws]] = None):
+        draws = iter(mix_draws or ())
         x = max_pool_same(F.relu(self.norm0(self.conv0(x))), 3, 2, 1)
         for i, n_layers in enumerate(self.block_config):
             for j in range(n_layers):
                 x = getattr(self, f"denseblock{i + 1}_layer{j + 1}")(x)
             if self.mix is not None and i in (0, 1):
-                x = self.mix(x, generator)
+                x = self.mix(x, next(draws, None))
             if i == 0:
                 x = F.pad(x, (2, 2, 2, 2))  # zero_padding
             if i != len(self.block_config) - 1:
@@ -242,7 +248,7 @@ class DigitModel(nn.Module):
         self.class_classifier = nn.Linear(512, classes)
 
     def forward(self, x: torch.Tensor, return_features: bool = False,
-                generator: Optional[torch.Generator] = None):
+                mix_draws: Optional[Sequence[MixDraws]] = None):
         x = max_pool_same(F.relu(self.bn1(self.Conv_0(x))), 2, 2, 0)
         x = max_pool_same(F.relu(self.bn2(self.Conv_1(x))), 2, 2, 0)
         x = _flatten_channels_last(F.relu(self.bn3(self.Conv_2(x))))
@@ -268,7 +274,7 @@ class AlexNet(nn.Module):
         self.class_classifier = nn.Linear(4096, classes)
 
     def forward(self, x: torch.Tensor, return_features: bool = False,
-                generator: Optional[torch.Generator] = None):
+                mix_draws: Optional[Sequence[MixDraws]] = None):
         for i in range(5):
             x = F.relu(getattr(self, f"bn{i + 1}")(getattr(self, f"Conv_{i}")(x)))
             if i in (0, 1, 4):

@@ -25,6 +25,9 @@ import torch.nn.functional as F
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling divides by it)
 _TRUNC_STD = 0.87962566103423978
 
+#: one MixStyle call's draws: (gate () bool, lambda (B,) float32, permutation (B,) int64)
+MixDraws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
 
 def variance_scaling_(w: torch.Tensor, scale: float, mode: str,
                       generator: torch.Generator) -> torch.Tensor:
@@ -98,11 +101,13 @@ class MixStyle(nn.Module):
 
     Train-only, applied with probability ``p`` a call; lambda ~ Beta(alpha,
     alpha) a sample; the statistics are detached like the reference's
-    ``.detach()``. Every draw comes from the step's ``generator``: the gate,
-    then lambda, then the permutation, all three drawn whether or not the gate
-    opens. ``torch.distributions.Beta`` takes no generator, so lambda comes
-    from ``numpy.random.Generator.beta`` seeded by one draw of the generator:
-    B floats a call, one small host-to-device copy.
+    ``.detach()``. The draws of a call come from the step's generator, on the
+    host (:meth:`sample`): the gate, then lambda, then the permutation, all
+    three drawn whether or not the gate opens. ``torch.distributions.Beta``
+    takes no generator, so lambda comes from ``numpy.random.Generator.beta``
+    seeded by one draw of the generator. ``forward`` applies given draws and
+    is pure (a closed gate selects the input itself), so ``torch.func.vmap``
+    can apply one client's draws a slice.
     """
 
     def __init__(self, p: float = 0.5, alpha: float = 0.1, eps: float = 1e-6):
@@ -118,15 +123,18 @@ class MixStyle(nn.Module):
         perm = torch.randperm(b, generator=generator)
         return apply, lmda, perm
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        if not self.training or generator is None:
+    def sample(self, generator: torch.Generator, b: int) -> MixDraws:
+        """:meth:`draw` as tensors on the host: (gate () bool, lambda (B,)
+        float32, permutation (B,) int64)."""
+        apply, lmda, perm = self.draw(generator, b)
+        return (torch.tensor(bool(apply)), torch.from_numpy(np.asarray(lmda, np.float32)),
+                torch.as_tensor(perm, dtype=torch.int64))
+
+    def forward(self, x: torch.Tensor, draws: Optional[MixDraws] = None) -> torch.Tensor:
+        if not self.training or draws is None:
             return x
-        apply, lmda, perm = self.draw(generator, x.shape[0])
-        if not apply:
-            return x
-        lmda = torch.from_numpy(lmda).to(x.device, non_blocking=True).view(-1, 1, 1, 1)
-        perm = perm.to(x.device, non_blocking=True)
+        gate, lmda, perm = (t.to(x.device, non_blocking=True) for t in draws)
+        lmda = lmda.view(-1, 1, 1, 1)
         xf = x.float()
         mu = xf.mean(dim=(2, 3), keepdim=True).detach()
         var = xf.var(dim=(2, 3), unbiased=False, keepdim=True).detach()
@@ -134,7 +142,7 @@ class MixStyle(nn.Module):
         x_normed = (xf - mu) / sig
         mu_mix = mu * lmda + mu[perm] * (1 - lmda)
         sig_mix = sig * lmda + sig[perm] * (1 - lmda)
-        return (x_normed * sig_mix + mu_mix).to(x.dtype)
+        return torch.where(gate, (x_normed * sig_mix + mu_mix).to(x.dtype), x)
 
 
 def max_pool_same(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:

@@ -11,7 +11,8 @@ fed_run's L = 0 blends only the DC bin; the blend ratio is uniform over
 The functions take any leading batch dimensions; a blend ``ratio`` has the
 batch shape (or is a number). The picks and ratios of a batch are drawn on
 the host (:func:`sample_feddg_draws`), separately, and applied on the images'
-device (:func:`feddg_augment`).
+device (:func:`feddg_augment`, pure: ``torch.func.vmap`` applies one client's
+draws a slice).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ def amplitude_spectrum(images_hwc: torch.Tensor) -> torch.Tensor:
 
 
 def _ratio(ratio: Ratio, like: torch.Tensor) -> torch.Tensor:
-    r = torch.as_tensor(ratio, dtype=like.dtype).to(like.device, non_blocking=True)
+    r = ratio if isinstance(ratio, torch.Tensor) else torch.tensor(ratio, dtype=like.dtype)
+    r = r.to(like.device, like.dtype, non_blocking=True)
     return r.reshape(r.shape + (1, 1, 1))
 
 
@@ -76,11 +78,3 @@ def feddg_augment(images: torch.Tensor, amp_bank: torch.Tensor, picks: torch.Ten
     W) on the same device, with the given picks and ratios."""
     trg = amp_bank[picks.to(amp_bank.device, non_blocking=True)]
     return source_to_target_freq(images * 255.0, trg, ratios, L=L) / 255.0
-
-
-def feddg_batch_augment(generator: torch.Generator, images: torch.Tensor,
-                        amp_bank: torch.Tensor, L: float = 0.0) -> torch.Tensor:
-    """Draw, then apply: the batched FedDG view (``ccst_tpu``'s
-    ``feddg_batch_augment``)."""
-    picks, ratios = sample_feddg_draws(generator, images.shape[0], amp_bank.shape[0])
-    return feddg_augment(images, amp_bank, picks, ratios, L=L)

@@ -5,9 +5,11 @@ and ImageNet normalization for training, antialiased resize and
 normalization for evaluation (reference data/data_helper.py:161-181).
 
 Each random transform is split into a draw on the host, from an explicit
-``torch.Generator`` (:func:`sample_crop_boxes`, :func:`sample_flips`), and its
-application on the images' device (:func:`crop_resize`, :func:`flip`), so a
-test can feed ``ccst_tpu``'s own boxes into :func:`crop_resize`.
+``torch.Generator`` (:func:`sample_crop_boxes`, :func:`sample_flips`,
+:func:`sample_train_transform`), and a pure application on the images' device
+(:func:`crop_resize`, :func:`flip`, :func:`train_transform` given the draws),
+so a test can feed ``ccst_tpu``'s own boxes into :func:`crop_resize`, and
+``torch.func.vmap`` can apply one set of draws a client.
 
 ``crop_resize`` is ``jax.image.scale_and_translate(..., "bilinear",
 antialias=True)`` for a fractional source box: per image, the (in, out)
@@ -55,11 +57,6 @@ def flip(images: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
     """Horizontal flip of the images where ``flips`` is true."""
     flips = flips.to(images.device, non_blocking=True)
     return torch.where(flips[:, None, None, None], images.flip(2), images)
-
-
-def random_horizontal_flip(generator: torch.Generator, images: torch.Tensor,
-                           p: float = 0.5) -> torch.Tensor:
-    return flip(images, sample_flips(generator, images.shape[0], p))
 
 
 def sample_crop_boxes(generator: torch.Generator, n: int, h: int, w: int,
@@ -116,14 +113,6 @@ def crop_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: int) -> tor
     return out.reshape(n, out_size, out_size, c).permute(0, 2, 1, 3).contiguous()
 
 
-def random_resized_crop(generator: torch.Generator, images: torch.Tensor, out_size: int,
-                        scale: Tuple[float, float] = (0.8, 1.0),
-                        ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)) -> torch.Tensor:
-    """Batched RandomResizedCrop(out_size, scale) (data_helper.py:165-169)."""
-    n, h, w, _ = images.shape
-    return crop_resize(images, sample_crop_boxes(generator, n, h, w, scale, ratio), out_size)
-
-
 def resize_square(images: torch.Tensor, size: int) -> torch.Tensor:
     """Resize(S, S), antialiased bilinear (the val / test transform,
     data_helper.py:178-181): ``jax.image.resize(..., "bilinear",
@@ -133,14 +122,22 @@ def resize_square(images: torch.Tensor, size: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def train_transform(generator: torch.Generator, images: torch.Tensor, out_size: int,
-                    min_scale: float = 0.8, max_scale: float = 1.0,
+def sample_train_transform(generator: torch.Generator, n: int, h: int, w: int,
+                           min_scale: float = 0.8, max_scale: float = 1.0,
+                           flip_p: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(boxes (n, 4), flips (n,)) of :func:`train_transform` on the host: the
+    boxes are drawn before the flips."""
+    boxes = sample_crop_boxes(generator, n, h, w, (min_scale, max_scale))
+    return boxes, sample_flips(generator, n, flip_p)
+
+
+def train_transform(draws: Tuple[torch.Tensor, torch.Tensor], images: torch.Tensor,
+                    out_size: int, min_scale: float = 0.8, max_scale: float = 1.0,
                     flip_p: float = 0.5) -> torch.Tensor:
-    """RandomResizedCrop + flip + ImageNet normalize (data_helper.py:161-176);
-    the boxes are drawn before the flips."""
-    x = random_resized_crop(generator, images, out_size, (min_scale, max_scale))
-    x = random_horizontal_flip(generator, x, flip_p)
-    return normalize(x)
+    """RandomResizedCrop + flip + ImageNet normalize (data_helper.py:161-176)
+    with the (boxes, flips) of :func:`sample_train_transform`."""
+    boxes, flips = draws
+    return normalize(flip(crop_resize(images, boxes, out_size), flips))
 
 
 def eval_transform(images: torch.Tensor, out_size: int) -> torch.Tensor:

@@ -11,7 +11,13 @@ over its output run on ``models/vgg.py``'s autograd route.
 Weights in and out are the ``.npz`` format both packages read: a decoder
 trained here loads in ``ccst-tpu stylize --decoder-weights``, and a
 ``ccst-tpu train-decoder`` output warm-starts this one (``init_decoder``).
-The JAX trainer's ``mesh`` (data parallelism) is not ported and raises.
+
+``mesh`` (data parallelism, as the JAX trainer's ``mesh``) is a
+``torch.distributed`` process group: its ranks read the same content and
+style batches, each takes its rows of them, and the gradients (and the
+losses) are averaged over the group with one ``all_reduce`` a step, so every
+rank's decoder takes the same Adam step; rank 0 alone writes the weights.
+K3 runs the frozen passes on each rank, on that rank's rows.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from ccst_tpu_torch.data.lists import parse_list, train_list_path
 from ccst_tpu_torch.data.loader import ImageBatchLoader
 from ccst_tpu_torch.models import vgg
 from ccst_tpu_torch.models.adain_net import adain_losses, decoder_leaves, frozen_encoder
+from ccst_tpu_torch.parallel import multihost
 from ccst_tpu_torch.utils.optim import Adam
 from ccst_tpu_torch.utils.precision import no_tf32
 
@@ -52,12 +59,6 @@ class DecoderTrainConfig:
     domains: str = ""               # comma-separated pool when content/style
                                     # domain is "" (e.g. sources only, so the
                                     # decoder never sees the held-out target)
-
-
-def refuse_mesh(command: str, mesh) -> None:
-    if mesh is not None:
-        raise SystemExit(f"ccst-tpu-torch {command}: a mesh (data parallelism) is not ported yet "
-                         "(ROADMAP Queue 1 item 4); it trains on one device")
 
 
 def _pooled_loader(cfg: DecoderTrainConfig, domain: str) -> ImageBatchLoader:
@@ -95,8 +96,10 @@ class DecoderTrainer:
     """The decoder, its Adam state and the frozen encoder on one device."""
 
     def __init__(self, cfg: DecoderTrainConfig, encoder_params, decoder_params, device,
-                 dtype: torch.dtype = torch.float32, kernel: bool = True):
-        self.cfg, self.device = cfg, torch.device(device)
+                 dtype: torch.dtype = torch.float32, kernel: bool = True, group=None):
+        """``group``: a process group whose ranks each hold a share of the
+        batch; the gradients and the losses are averaged over it."""
+        self.cfg, self.device, self.group = cfg, torch.device(device), group
         self.encoder = frozen_encoder(encoder_params, self.device, dtype, kernel=kernel)
         self.decoder = vgg.trainable_params(decoder_params, self.device, dtype)
         self.opt = Adam(decoder_leaves(self.decoder), cfg.lr)
@@ -107,18 +110,22 @@ class DecoderTrainer:
         with no_tf32():
             lc, ls = adain_losses(self.encoder, self.decoder, content, style)
             loss = self.cfg.content_weight * lc + self.cfg.style_weight * ls
-            grads = torch.autograd.grad(loss, self.opt.params)
+            grads = list(torch.autograd.grad(loss, self.opt.params))
+        lc, ls = lc.detach(), ls.detach()
+        if self.group is not None:
+            *grads, lc, ls = multihost.all_reduce_mean(grads + [lc, ls], self.group)
         self.opt.step(grads)
-        return lc.detach(), ls.detach()
+        return lc, ls
 
 
 def train_decoder(cfg: DecoderTrainConfig, mesh=None, device="cuda") -> Dict[str, Any]:
     """Returns {final_loss_c, final_loss_s, out_path, steps_per_sec,
     img_per_sec}; writes .npz weights. The rates are those of the steps after
-    the first (which builds the kernels and picks cuDNN's algorithms)."""
+    the first (which builds the kernels and picks cuDNN's algorithms).
+    ``mesh``: a process group whose ranks split each batch (module
+    docstring)."""
     from ccst_tpu_torch.models.convert import load_decoder, load_encoder, save_npz
 
-    refuse_mesh("train-decoder", mesh)
     if cfg.vgg_weights:
         enc = load_encoder(cfg.vgg_weights)
     else:
@@ -127,7 +134,11 @@ def train_decoder(cfg: DecoderTrainConfig, mesh=None, device="cuda") -> Dict[str
         dec = load_decoder(cfg.init_decoder)
     else:
         dec = vgg.init_params(vgg.DECODER_ARCH, torch.Generator().manual_seed(cfg.seed))
-    trainer = DecoderTrainer(cfg, enc, dec, device)
+    rows = slice(None)
+    if mesh is not None:
+        device = multihost.rank_device(device)
+        rows = multihost.group_rows(cfg.batch_size, mesh)
+    trainer = DecoderTrainer(cfg, enc, dec, device, group=mesh)
     dev = trainer.device
 
     content_iter = iter(_pooled_loader(cfg, cfg.content_domain))
@@ -138,12 +149,12 @@ def train_decoder(cfg: DecoderTrainConfig, mesh=None, device="cuda") -> Dict[str
     for i in range(cfg.steps):
         cb = next(content_iter)
         sb = next(style_iter)
-        lc, ls = trainer.step(torch.from_numpy(cb.images).to(dev),
-                              torch.from_numpy(sb.images).to(dev))
+        lc, ls = trainer.step(torch.from_numpy(cb.images[rows]).to(dev),
+                              torch.from_numpy(sb.images[rows]).to(dev))
         if i == 0:
             synchronize(dev)
             t_warm = time.perf_counter()
-        if (i + 1) % cfg.log_every == 0:
+        if (i + 1) % cfg.log_every == 0 and multihost.rank() == 0:
             print(
                 f"step {i+1}/{cfg.steps} loss_c={float(lc):.4f} "
                 f"loss_s={float(ls):.4f} "
@@ -152,8 +163,9 @@ def train_decoder(cfg: DecoderTrainConfig, mesh=None, device="cuda") -> Dict[str
             )
     synchronize(dev)
     steady = time.perf_counter() - t_warm if t_warm is not None else 0.0
-    os.makedirs(os.path.dirname(cfg.out_path) or ".", exist_ok=True)
-    save_npz(cfg.out_path, vgg.params_from_trainable(trainer.decoder))
+    if multihost.rank() == 0:  # single writer
+        os.makedirs(os.path.dirname(cfg.out_path) or ".", exist_ok=True)
+        save_npz(cfg.out_path, vgg.params_from_trainable(trainer.decoder))
     rate = (cfg.steps - 1) / steady if cfg.steps > 1 and steady > 0 else float("nan")
     return {
         "final_loss_c": float(lc),

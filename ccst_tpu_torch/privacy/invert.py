@@ -25,8 +25,21 @@ they take the autograd route (float32, the bf16-rounded weights of JAX's
 Checkpoints: the port writes ``torch.save({"params": state_dict, "best"})``;
 ``utils/checkpoint.py::load_checkpoint`` also reads ``ccst-tpu
 invert-train``'s msgpack, whose flax tree :func:`generator.from_flax` maps.
-Single process: ``coordinator`` / ``num_procs`` (the reference's DDP entry
-point) raise.
+
+Data parallelism on ``torch.distributed`` (``parallel/multihost.py``), in two
+forms, as the JAX trainer has them:
+
+  - a multi-process launch (``coordinator`` / ``num_procs``, the reference's
+    DDP loop, imagenet_reconstruct.py:141-175): each rank reads its strided
+    shard of the train and val images (``train_idx[rank::ranks]``) at
+    ``batch_size`` a rank, the gradients (and the loss) are averaged with one
+    ``all_reduce`` a step and Adam runs alike on every rank, the val sums are
+    summed over the ranks, and rank 0 alone saves and prints;
+  - ``mesh``, a process group of one call: its ranks read the same batches
+    and each takes its rows of the global batch, the gradients averaged over
+    the group.
+
+K3 runs every grad-free VGG pass on each rank, on that rank's rows.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ from ccst_tpu_torch.data.lists import parse_list, train_list_path
 from ccst_tpu_torch.data.loader import ImageBatchLoader, save_image_u8
 from ccst_tpu_torch.models import vgg
 from ccst_tpu_torch.ops.adain import calc_mean_std
+from ccst_tpu_torch.parallel import multihost
 from ccst_tpu_torch.pipeline.train_decoder import synchronize
 from ccst_tpu_torch.privacy.generator import StyleInverter, from_flax
 from ccst_tpu_torch.utils.optim import Adam
@@ -69,17 +83,10 @@ class InvertConfig:
     perc_weight: float = 0.1      # weight of the perceptual term
     lpips_vgg: str = ""           # torchvision vgg16 .pth -> TRUE LPIPS
     lpips_lin: str = ""           # LPIPS linear-head .pth (both required)
-    # multi-process launch: not ported (raises)
+    # multi-process launch (the reference's DDP template): one rank a process
     coordinator: str = ""
     num_procs: int = 0
     proc_id: int = -1
-
-
-def refuse_multiprocess(cfg: InvertConfig) -> None:
-    if cfg.coordinator or cfg.num_procs > 1:
-        raise SystemExit("ccst-tpu-torch invert-train: --coordinator / --num-procs are not "
-                         "ported yet (ROADMAP Queue 1 item 4: multi-process runs); it trains "
-                         "in one process on one device")
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
@@ -140,11 +147,23 @@ def _split_indices(cfg: InvertConfig, n: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx[:n_val], idx[n_val:]
 
 
-def _loaders(cfg: InvertConfig) -> Tuple[ImageBatchLoader, ImageBatchLoader]:
+def _loaders(cfg: InvertConfig, shard: Tuple[int, int] = (0, 1)
+             ) -> Tuple[ImageBatchLoader, ImageBatchLoader]:
+    """(train, val) loaders; ``shard = (rank, ranks)`` keeps a rank's strided
+    shard of both splits (the DistributedSampler analogue)."""
     names, labels = parse_list(train_list_path(cfg.list_root, cfg.dataset, cfg.source))
     if cfg.data_root:
         names = [os.path.join(cfg.data_root, n) for n in names]
     val_idx, train_idx = _split_indices(cfg, len(names))
+    p, np_ = shard
+    if np_ > 1:
+        train_idx, val_idx = train_idx[p::np_], val_idx[p::np_]
+        if len(train_idx) < cfg.batch_size:
+            # with loop=True and drop_last=True a shard smaller than a batch
+            # never yields one, and next() would hang every rank
+            raise ValueError(f"process {p}'s train shard has {len(train_idx)} images < "
+                             f"batch_size {cfg.batch_size}: use fewer processes or a smaller "
+                             "batch")
     train = ImageBatchLoader(
         [names[i] for i in train_idx], [labels[i] for i in train_idx],
         batch_size=cfg.batch_size, image_size=cfg.image_size,
@@ -179,8 +198,10 @@ class InverterTrainer:
 
     def __init__(self, cfg: InvertConfig, encoder_params, device,
                  dtype: torch.dtype = torch.float32, kernel: bool = True,
-                 model: StyleInverter = None):
-        self.cfg, self.device = cfg, torch.device(device)
+                 model: StyleInverter = None, group=None):
+        """``group``: a process group whose ranks each hold a share of the
+        batch; the gradients and the loss are averaged over it."""
+        self.cfg, self.device, self.group = cfg, torch.device(device), group
         if cfg.loss not in ("mse", "mse+perceptual"):
             raise ValueError(f"unknown --loss {cfg.loss!r}")
         enc16 = round_bf16(encoder_params)
@@ -211,23 +232,35 @@ class InverterTrainer:
         self.model.train()
         with no_tf32():
             loss = self.loss(images, z)
-            grads = torch.autograd.grad(loss, self.opt.params)
+            grads = list(torch.autograd.grad(loss, self.opt.params))
+        loss = loss.detach()
+        if self.group is not None:
+            *grads, loss = multihost.all_reduce_mean(grads + [loss], self.group)
         self.opt.step(grads)
-        return loss.detach()
+        return loss
 
 
 def train_inverter(cfg: InvertConfig, mesh=None, device="cuda") -> Dict[str, Any]:
     """Train the style inverter for one source domain; saves the best-PSNR
     params to ``{out_dir}/{dataset}/{source}_inverter.ckpt``. Returns the best
     {psnr, step}, the checkpoint path, the final loss and the training steps'
-    rates (the steps after the first, validation left out)."""
-    from ccst_tpu_torch.pipeline.train_decoder import refuse_mesh
+    rates (the steps after the first, validation left out). ``mesh``: a
+    process group whose ranks split each batch (module docstring)."""
+    import torch.distributed as dist
+
     from ccst_tpu_torch.utils.checkpoint import save_checkpoint
 
-    refuse_multiprocess(cfg)
-    refuse_mesh("invert-train", mesh)
+    if (cfg.coordinator or cfg.num_procs > 1) and not dist.is_initialized():
+        multihost.initialize(cfg.coordinator or None,
+                             cfg.num_procs if cfg.num_procs > 0 else None,
+                             cfg.proc_id if cfg.proc_id >= 0 else None, device=device)
+    multiproc = multihost.world_size() > 1 and mesh is None
+    group = dist.group.WORLD if multiproc else mesh
+    if group is not None:
+        device = multihost.rank_device(device)
+    rows = multihost.group_rows(cfg.batch_size, mesh) if mesh is not None else slice(None)
     enc = _encoder_params(cfg)
-    trainer = InverterTrainer(cfg, enc, device)
+    trainer = InverterTrainer(cfg, enc, device, group=group)
     dev = trainer.device
     enc16 = vgg.prepare_params(enc, torch.bfloat16, dev)
 
@@ -236,9 +269,11 @@ def train_inverter(cfg: InvertConfig, mesh=None, device="cuda") -> Dict[str, Any
             trainer.model.eval()
             recon = trainer.model(style_vector(enc16, images))
             p = psnr(recon, images)[:valid]
-        return float(p.sum()), float(valid)
+        return p.sum().double(), float(valid)
 
-    train_loader, val_loader = _loaders(cfg)
+    shard = (multihost.rank(), multihost.world_size()) if multiproc else (0, 1)
+    train_loader, val_loader = _loaders(cfg, shard)
+    rank0 = multihost.rank() == 0
     best = {"psnr": -1.0, "step": -1}
     out_path = checkpoint_path(cfg)
     it = iter(train_loader)
@@ -247,7 +282,7 @@ def train_inverter(cfg: InvertConfig, mesh=None, device="cuda") -> Dict[str, Any
     train_seconds, t_start = 0.0, None
     for i in range(cfg.steps):
         batch = next(it)
-        images = torch.from_numpy(batch.images).to(dev)
+        images = torch.from_numpy(batch.images[rows]).to(dev)
         if i == 1:
             synchronize(dev)
             t_start = time.perf_counter()
@@ -258,25 +293,30 @@ def train_inverter(cfg: InvertConfig, mesh=None, device="cuda") -> Dict[str, Any
             if t_start is not None:
                 synchronize(dev)
                 train_seconds += time.perf_counter() - t_start
-            tot = n = 0.0
+            sums = torch.zeros(2, dtype=torch.float64, device=dev)
             for vb in val_loader:
                 s, m = val_psnr(torch.from_numpy(vb.images).to(dev), vb.valid)
-                tot += s
-                n += m
+                sums += torch.stack([s, torch.tensor(m, dtype=torch.float64, device=dev)])
+            if multiproc:  # every rank scored its own val shard
+                multihost.all_reduce_sum(sums)
+            tot, n = sums.tolist()
             cur = tot / max(n, 1.0)
             if cur > best["psnr"]:
                 best = {"psnr": cur, "step": i}
-                save_checkpoint(out_path, {
-                    "params": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
-                    "best": best})
-            print(f"step {i+1}/{cfg.steps} loss={float(loss):.5f} val_psnr={cur:.2f}dB")
+                if rank0:  # single writer
+                    save_checkpoint(out_path, {
+                        "params": {k: v.detach().cpu()
+                                   for k, v in trainer.model.state_dict().items()},
+                        "best": best})
+            if rank0:
+                print(f"step {i+1}/{cfg.steps} loss={float(loss):.5f} val_psnr={cur:.2f}dB")
             if t_start is not None:
                 t_start = time.perf_counter()
     rate = (cfg.steps - 1) / train_seconds if train_seconds > 0 else float("nan")
     best["checkpoint"] = out_path
     best["final_loss"] = float(loss)
     best["steps_per_sec"] = rate
-    best["img_per_sec"] = rate * cfg.batch_size
+    best["img_per_sec"] = rate * cfg.batch_size * shard[1]  # every rank's images
     return best
 
 

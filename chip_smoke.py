@@ -84,7 +84,7 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      --rounds 2 --save-freq 1`` at ``FedConfig``'s widths (222 px, batch 32,
      lr 1e-2, 7 classes, 3 clients in sequence, at least two local steps
      each), one round each of fedbn, fedprox, adafea and deepall and of RSC,
-     Jigsaw, MixStyle and feddg, ``--resume`` to round 3 (it must start at
+     Jigsaw, MixStyle and feddg (four processes at a time), ``--resume`` to round 3 (it must start at
      round 2), ``fed-test --checkpoint best`` (it must print exactly the
      ``test_acc`` the log recorded for the best round), ``--in-test`` and
      ``--tent``; every run must exit 0 and every logged loss be finite. Then
@@ -133,6 +133,26 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      run go on the ``privacy`` line with the card's name and power limit. The
      trainable passes run cuDNN through the autograd route, as ``ccst_tpu``
      trains through XLA's convs; every grad-free VGG pass runs K3.
+  9. parallel clients and multi-process runs, on the same tree, ResNet-50 at
+     ``FedConfig``'s widths (float32, TF32 off, cuDNN deterministic): (a) one
+     vmapped step of the three clients against their three sequential steps
+     from the same states and draws (the same bits over two calls; each loss
+     within 1e-4; per leaf phase 7's rule against float64 steps on the card,
+     the sequential step as float32's resolution), both timed in both cuDNN
+     modes with the peak device memory; (b) ``fed-train --parallel-clients``
+     for 2 rounds; (c) the same run as 3 ranks of ``--coordinator
+     127.0.0.1:PORT --num-procs 3`` on the one card (gloo, printed): one
+     server sha256 on every rank; each CLI run's final server bit-equal to
+     this process's replay of its steps; then over the 2 rounds, on the CLI
+     runs' data and on one full batch a client a round, the two paths
+     replayed in float64 within 1e-6 of the update of each other, and each
+     float32 run against float64 by phase 7's rule with the other float32
+     run as its float32 reference;
+     (d) ``invert-train`` on 2 ranks (each its strided shard, ``--rank-worker``
+     processes of this script) and (e) ``train-decoder`` on a mesh of 2 ranks:
+     each rank's K3 launches (18 a step), then one step over the two ranks on
+     phase 8's batch, bit-equal on both and within phase 8's rule of its
+     float64 step. A ``parallel`` JSON line reports them.
 
 The random decoder's last conv is rescaled (x12, bias +0.5) so that stylized
 outputs spread over [0, 1] as real ones do: the MAE bar is then 0.1% of the
@@ -145,9 +165,10 @@ runs the same phases on a larger synthetic tree and batch, for the device
 rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
 Before the last two lines come the ``fed`` JSON line of phase 7 (with F3's
-``step_bits``) and the ``privacy`` line of phase 8. The line
+``step_bits``), the ``privacy`` line of phase 8 and the ``parallel`` line of
+phase 9. The line
 before the last is a JSON object with one entry per kernel, whose
-``launches`` are the counts of the main paths of phases 4 and 8 (K2 decodes ``int8-fused``:
+``launches`` are the counts of the main paths of phases 4, 8 and 9 (K2 decodes ``int8-fused``:
 on this card it is faster than the two K0 launches it replaces,
 ``replaces_chain_ms``) and,
 for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
@@ -932,6 +953,7 @@ def check_ab_kernels(torch, dev, cpu_gen, results):
 
 FED_NET, FED_BATCH, FED_SIZE, FED_CLASSES = "resnet50", 32, 222, 7  # FedConfig's widths, PACS
 FED_FUSION = "adain-overall-K3"
+FED_CONCURRENT = 4          # phase 7's one-round CLI runs at a time on the card
 FED_LOSS_RTOL = 1e-4        # one local step's loss, card against CPU
 # a leaf's update on the card against the CPU's float64 step: median |d_card - d_64| at most
 # max(FED_DELTA_MEDIAN, FED_F32_FACTOR x the CPU float32 step's own distance) of max |d_64|.
@@ -1001,7 +1023,8 @@ def check_fed_steps(torch, dev, root, bank):
             logits = None
             if (net, dg, mode) == FED_STEP_CASES[0]:
                 with torch.no_grad():
-                    x = train_transform(torch.Generator().manual_seed(7), bd["images"], FED_SIZE)
+                    crop = step.draw(torch.Generator().manual_seed(7), bd)["crop"]
+                    x = train_transform(crop, bd["images"], FED_SIZE)
                     # copies: the train-mode forward updates the running statistics in place
                     logits = forward(model, {k: cast(v).clone() for k, v in state.items()}, x,
                                      True).double().cpu()
@@ -1131,12 +1154,27 @@ def run_fed_cli(root, images_per_domain):
                 root, "--data-root", root, "--image-size", str(FED_SIZE))
     cli("fed-train fedavg", "fed-train", *common, "--mode", "fedavg", "--rounds", "2",
         "--save-freq", "1")
-    for mode in ("fedbn", "fedprox", "adafea", "deepall"):
-        cli(f"fed-train {mode}", "fed-train", *common, "--mode", mode, "--rounds", "1")
-        rounds_of(mode)
-    for dg in ("RSC", "Jigsaw", "MixStyle", "feddg"):
-        cli(f"fed-train {dg}", "fed-train", *common, "--dg-method", dg, "--rounds", "1")
-        rounds_of("fedavg", dg)
+    # the one-round runs of the other modes and plugins, FED_CONCURRENT at a time on
+    # the card: each process spends most of its 17-21 s starting (an H100, one at a time)
+    runs = [(f"fed-train {m}", ["--mode", m], (m,)) for m in ("fedbn", "fedprox", "adafea",
+                                                               "deepall")]
+    runs += [(f"fed-train {dg}", ["--dg-method", dg], ("fedavg", dg))
+             for dg in ("RSC", "Jigsaw", "MixStyle", "feddg")]
+    for i in range(0, len(runs), FED_CONCURRENT):
+        batch = runs[i:i + FED_CONCURRENT]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "ccst_tpu_torch.cli", "fed-train",
+                                   *common, *extra, "--rounds", "1"], cwd=HERE, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for _, extra, _ in batch]
+        for (name, _, log), proc in zip(batch, procs):
+            out_, err = proc.communicate(timeout=900)
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"{name} exited {proc.returncode}:\n{out_[-3000:]}\n{err[-3000:]}")
+            print(f"{name}: exit 0 in {seconds[name]:.1f} s ({len(batch)} at a time); "
+                  f"{out_.strip().splitlines()[-1]}")
+            rounds_of(*log)
     printed = cli("fed-train fedavg --resume", "fed-train", *common, "--mode", "fedavg",
                   "--rounds", "3", "--save-freq", "1", "--resume")
     if "[resume] round=2" not in printed:
@@ -1286,30 +1324,45 @@ def priv_images(torch, root, names, n):
     return torch.from_numpy(next(iter(loader)).images)
 
 
+def median_rule(tag, start, got, c32, c64, floor, factor):
+    """Phase 7's rule for one update: per leaf, median |d_got - d_64| at most
+    max(floor, factor x median |d_32 - d_64|) of max |d_64|. Returns
+    (failures, {leaf: (e_got, e_32)})."""
+    failures, errs = [], {}
+    for k, old in start.items():
+        if not old.is_floating_point():
+            if not bool((got[k] == c32[k]).all()):
+                failures.append(f"{tag}: {k} differs")
+            continue
+        old = old.double()
+        d64 = c64[k].double() - old
+        scale = d64.abs().max().item()
+        if scale == 0.0:
+            if (got[k].double() - old).abs().max().item() != 0.0:
+                failures.append(f"{tag}: {k} moved where float64 did not")
+            continue
+        e_got = (got[k].double() - c64[k].double()).abs().median().item() / scale
+        e_32 = (c32[k].double() - c64[k].double()).abs().median().item() / scale
+        errs[k] = (e_got, e_32)
+        if not e_got <= max(floor, factor * e_32):
+            failures.append(f"{tag}: {k} median |d - d_64| {e_got:.3e} of max |d_64| (the "
+                            f"float32 reference's {e_32:.3e})")
+    return failures, errs
+
+
 def compare_steps(torch, tag, start, outs):
     """Phase 7's rule on one step's ``outs`` = {run: (leaves, loss)} for the runs
     "card", "cpu32", "cpu64" from the float64 ``start`` leaves: the loss within
     STEP_LOSS_RTOL, each leaf's median |d_card - d_64| at most
     max(STEP_DELTA_MEDIAN, STEP_F32_FACTOR x the CPU float32 step's own) of max |d_64|."""
     (card, l_card), (c32, l_32), (c64, l_64) = outs["card"], outs["cpu32"], outs["cpu64"]
-    failures, worst = [], []
+    failures = []
     rel = abs(l_card - l_64) / abs(l_64)
     if not math.isfinite(l_card) or rel > STEP_LOSS_RTOL or abs(l_32 - l_64) / abs(l_64) > STEP_LOSS_RTOL:
         failures.append(f"{tag}: loss card {l_card}, CPU float32 {l_32}, float64 {l_64}")
-    for k, old in start.items():
-        d64 = c64[k] - old
-        scale = d64.abs().max().item()
-        if scale == 0.0:
-            if (card[k] - old).abs().max().item() != 0.0:
-                failures.append(f"{tag}: {k} moved on the card only")
-            continue
-        e_card = (card[k] - c64[k]).abs().median().item() / scale
-        e_cpu = (c32[k] - c64[k]).abs().median().item() / scale
-        worst.append((e_card, k, e_cpu))
-        if not e_card <= max(STEP_DELTA_MEDIAN, STEP_F32_FACTOR * e_cpu):
-            failures.append(f"{tag}: {k} median |d_card - d_64| {e_card:.3e} of max |d_64| "
-                            f"(the CPU's float32 {e_cpu:.3e})")
-    worst.sort(reverse=True)
+    bad, errs = median_rule(tag, start, card, c32, c64, STEP_DELTA_MEDIAN, STEP_F32_FACTOR)
+    failures += bad
+    worst = sorted(((e, k, e32) for k, (e, e32) in errs.items()), reverse=True)
     pair = max((card[k] - c32[k]).abs().max().item() / max((c64[k] - old).abs().max().item(),
                                                            1e-30) for k, old in start.items())
     row = {"loss_card": l_card, "loss_cpu32": l_32, "loss_cpu64": l_64, "loss_rel_err": rel,
@@ -1351,6 +1404,7 @@ def check_privacy_steps(torch, dev, root, names, enc, dec):
                       for k, p in l.items()},
                      float(cfg.content_weight * lc + cfg.style_weight * ls))
     report["train-decoder"], bad = compare_steps(torch, "train-decoder", start, outs)
+    refs = {"train-decoder": {"start": start, "outs": outs, "content": content, "style": style}}
     failures += bad
 
     images = priv_images(torch, root, names, INV_BATCH)
@@ -1376,11 +1430,12 @@ def check_privacy_steps(torch, dev, root, names, enc, dec):
         outs[run] = ({k: v.detach().double().cpu() for k, v in t.model.state_dict().items()},
                      float(loss))
     report["invert-train"], bad = compare_steps(torch, "invert-train", start, outs)
+    refs["invert-train"] = {"start": start, "outs": outs, "images": images, "z": z, "init": init}
     report["style_vector_rel_err"] = z_err
     failures += bad
     if failures:
         fail("privacy steps:\n  " + "\n  ".join(failures[:40]))
-    return report
+    return report, refs
 
 
 def run_privacy_phase(torch, root, run_step, smi, images_per_domain, enc_path, dec_path,
@@ -1467,7 +1522,7 @@ def run_privacy_phase(torch, root, run_step, smi, images_per_domain, enc_path, d
     gp = [json.loads(l)["gp"] for l in open(os.path.join(gan, "gan_pacs_art_painting.jsonl"))]
     if not gp[0] > 0:
         fail(f"gan-train: the penalty did not run at step 0 ({gp})")
-    steps_report = check_privacy_steps(torch, dev, root, names, enc, dec)
+    steps_report, refs = check_privacy_steps(torch, dev, root, names, enc, dec)
     line = {"card": smi, "image_size": PRIV_SIZE, "precision": "float32, TF32 off; K3 bf16 "
             "for the style vector", "steps": PRIV_STEPS,
             "runs": {k: {kk: vv for kk, vv in v.items() if kk != "printed"}
@@ -1477,7 +1532,585 @@ def run_privacy_phase(torch, root, run_step, smi, images_per_domain, enc_path, d
         print(f"{k}: {v['seconds']:.1f} s, " + (f"{v['steps_per_sec']:.2f} steps/s, "
               if "steps_per_sec" in v else "") + f"{v['img_per_sec']:.1f} img/s, peak device "
               f"memory {v['max_memory_allocated_bytes'] / 2**30:.2f} GiB ({smi})")
-    return line
+    return line, refs
+
+
+# -- parallel clients and multi-process runs (phase 9) -------------------------
+
+PAR_SOURCES = ("art_painting", "cartoon", "sketch")  # PACS's source clients, target photo
+PAR_ROUNDS = 2
+PAR_WORLD = 3                                        # (c): one rank a client
+# (c): the ranks' arithmetic (one client a vmap) and the stacked run's (three
+# clients a vmap), replayed in float64 over the CLI's rounds, as one function:
+# per leaf max |d_ranks - d_stacked| at most this of max |d| of the update
+PAR_F64_PATHS = 1e-6
+PRIV_WORLD = 2                                       # (d), (e): two ranks split the batch
+
+
+def par_batches(torch, root, dev):
+    """The first FED_BATCH entries of each source client's K3 list at FED_SIZE,
+    stacked (C, B, ...) as the parallel runner hands them to the step."""
+    from ccst_tpu_torch.data.lists import parse_list, train_list_path
+    from ccst_tpu_torch.data.loader import ImageBatchLoader
+    from ccst_tpu_torch.parallel.fed_mesh import stack_trees
+
+    out = []
+    for d in PAR_SOURCES:
+        names, labels = parse_list(train_list_path(root, "pacs", d, fusion_dir=FED_FUSION,
+                                                   target="photo"))
+        loader = ImageBatchLoader([os.path.join(root, n) for n in names[:FED_BATCH]],
+                                  labels[:FED_BATCH], batch_size=FED_BATCH, image_size=FED_SIZE,
+                                  out_dtype="uint8")
+        b = next(iter(loader))
+        out.append({"images": torch.from_numpy(b.images).to(dev).float()
+                    / torch.full((), 255.0, device=dev),
+                    "labels": torch.from_numpy(b.labels.astype("int64")).to(dev),
+                    "mask": torch.ones(FED_BATCH, device=dev)})
+    return stack_trees(out)
+
+
+def check_stacked_step(torch, dev, root):
+    """(a) One vmapped ResNet-50 step of the three clients against their three
+    sequential steps, from the same states with the same draws; float64 steps
+    on the card as the reference of both. Times in both cuDNN modes."""
+    from ccst_tpu_torch.federated.train_ops import make_train_step
+    from ccst_tpu_torch.models.classifiers import get_network, init_weights
+    from ccst_tpu_torch.parallel.fed_mesh import (ParallelFedTrainer, client_generators,
+                                                  map_tree, stack_trees)
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    n = len(PAR_SOURCES)
+    model = init_weights(get_network(FED_NET, FED_CLASSES), torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    base = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    noise = torch.Generator().manual_seed(2)
+    states = [{k: (v + 1e-3 * torch.randn(v.shape, generator=noise).to(dev))
+               if v.is_floating_point() else v.clone() for k, v in base.items()}
+              for _ in range(n)]
+    batch = par_batches(torch, root, dev)
+    step = make_train_step(model, n_classes=FED_CLASSES, image_size=FED_SIZE, lr=1e-2)
+    trainer = ParallelFedTrainer(step, "fedavg", [1.0 / n] * n)
+    draws = trainer.draw(client_generators(1, 0, range(n)), batch, dev)
+    stacked = stack_trees(states)
+
+    def one(tree, ci, cast=lambda t: t):
+        return map_tree(lambda t: cast(t[ci]), tree)
+
+    def run_seq():
+        return [step.apply(states[ci], base, one(batch, ci), one(draws, ci), 0)
+                for ci in range(n)]
+
+    failures = []
+    with no_tf32(deterministic=True):
+        t0 = time.perf_counter()
+        got, m = trainer.step(stacked, base, batch, draws, 0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        again, _ = trainer.step(stacked, base, batch, draws, 0)
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            failures.append("the stacked step gave other bits on a second call")
+        seq = run_seq()
+        f64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+        model.double()
+        ref = [step.apply({k: f64(v) for k, v in states[ci].items()},
+                          {k: f64(v) for k, v in base.items()}, one(batch, ci, f64),
+                          one(draws, ci, f64), 0) for ci in range(n)]
+        model.float()
+    worst = []
+    for ci in range(n):
+        l_got, l_seq, l_64 = float(m.loss[ci]), float(seq[ci][1].loss), float(ref[ci][1].loss)
+        if not math.isfinite(l_got) or abs(l_got - l_seq) / abs(l_seq) > FED_LOSS_RTOL:
+            failures.append(f"client {ci}: loss {l_got} stacked, {l_seq} in sequence")
+        bad, errs = median_rule(f"client {ci}", states[ci], {k: v[ci] for k, v in got.items()},
+                                seq[ci][0], ref[ci][0], FED_DELTA_MEDIAN, FED_F32_FACTOR)
+        failures += bad
+        for k, (e_got, e_32) in errs.items():
+            worst.append((e_got, ci, k, e_32))
+        print(f"stacked step client {ci} ({PAR_SOURCES[ci]}): loss stacked {l_got:.6f}, "
+              f"sequential {l_seq:.6f}, float64 {l_64:.6f}")
+    worst.sort(reverse=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    with no_tf32(deterministic=True):  # the runner's mode
+        times["stacked_ms"] = time_ms(torch, lambda: trainer.step(stacked, base, batch, draws, 0),
+                                      reps=3, runs=3)
+        times["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        times["sequential_ms"] = time_ms(torch, run_seq, reps=1, runs=3)
+    with no_tf32(deterministic=False):  # cuDNN's default algorithms, for comparison
+        times["stacked_default_ms"] = time_ms(
+            torch, lambda: trainer.step(stacked, base, batch, draws, 0), reps=2, runs=3)
+        times["sequential_default_ms"] = time_ms(torch, run_seq, reps=1, runs=3)
+    images = n * FED_BATCH
+    for k in ("stacked", "sequential", "stacked_default", "sequential_default"):
+        times[f"{k}_img_s"] = images / (times[f"{k}_ms"] * 1e-3)
+    print(f"stacked step ({n} clients x {FED_BATCH} x {FED_SIZE}px, ResNet-50, float32, TF32 off, "
+          f"cuDNN deterministic): {times['stacked_ms']:.2f} ms = {times['stacked_img_s']:.1f} "
+          f"img/s against {times['sequential_ms']:.2f} ms = {times['sequential_img_s']:.1f} img/s "
+          f"for the {n} sequential steps (default cuDNN: {times['stacked_default_ms']:.2f} / "
+          f"{times['sequential_default_ms']:.2f} ms); first call {first_s:.1f} s; peak device "
+          f"memory {times['max_memory_allocated_bytes'] / 2**30:.2f} GiB; worst leaf median "
+          f"|d - d_64| / max |d_64| stacked {worst[0][0]:.2e} (client {worst[0][1]}, "
+          f"{worst[0][2]}; the sequential step's {worst[0][3]:.2e})")
+    if failures:
+        fail("stacked step:\n  " + "\n  ".join(failures[:40]))
+    return {**times, "first_call_s": first_s, "bits_equal_over_two_calls": True,
+            "worst_leaves": [(k, ci, e, e32) for e, ci, k, e32 in worst[:3]],
+            "losses": [float(v) for v in m.loss]}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, tag, timeout=600):
+    """(stdout, stderr) of each process; fails on a nonzero exit."""
+    outs = []
+    for i, p in enumerate(procs):
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"{tag}: rank {i} ran past {timeout} s")
+        if p.returncode != 0:
+            for q in procs:
+                q.kill()
+            fail(f"{tag}: rank {i} exited {p.returncode}:\n{out[-2000:]}\n{err[-3000:]}")
+        outs.append((out, err))
+    return outs
+
+
+def update_drift(start, got, want):
+    """Per leaf, median |d_got - d_want| / max |d_want| of two runs' updates
+    from ``start``, worst first."""
+    worst = []
+    for k, old in start.items():
+        if not old.is_floating_point():
+            continue
+        old, w, g = old.double().cpu(), want[k].double().cpu(), got[k].double().cpu()
+        scale = (w - old).abs().max().item()
+        if scale > 0.0:
+            worst.append(((g - w).abs().median().item() / scale, k))
+    return sorted(worst, reverse=True)
+
+
+def run_par_cli(torch, root):
+    """(b) ``fed-train --parallel-clients`` for PAR_ROUNDS rounds, then (c) the
+    same run as PAR_WORLD ranks on the one card; returns their reports."""
+    from ccst_tpu_torch.models.classifiers import get_network, init_weights
+    from ccst_tpu_torch.utils.checkpoint import load_checkpoint
+    from ccst_tpu_torch.utils.metrics import read_rounds
+
+    run = f"pacs_photo_fedavg_{FED_FUSION}_no_DG_{FED_NET}_seed1"
+
+    def argv(out):
+        return [sys.executable, "-m", "ccst_tpu_torch.cli", "fed-train", "--dataset", "pacs",
+                "--target", "photo", "--fusion-mode", FED_FUSION, "--network", FED_NET,
+                "--list-root", root, "--data-root", root, "--mode", "fedavg", "--rounds",
+                str(PAR_ROUNDS), "--save-freq", "1", "--save-path", os.path.join(out, "ckpt"),
+                "--log-path", os.path.join(out, "logs"), "--device", "cuda"]
+
+    def rounds_of(out, tag):
+        recs = [r for r in read_rounds(os.path.join(out, "logs", run + ".jsonl"))
+                if r["event"] == "round"]
+        if [r["round"] for r in recs] != list(range(PAR_ROUNDS)):
+            fail(f"{tag} logged rounds {[r['round'] for r in recs]}")
+        for r in recs:
+            if not all(math.isfinite(v) for k, v in r.items() if k.startswith("train_loss/")):
+                fail(f"{tag}: a non-finite loss in {r}")
+        return recs
+
+    single = os.path.join(root, "parallel", "single")
+    t0 = time.perf_counter()
+    proc = subprocess.run([*argv(single), "--parallel-clients"], cwd=HERE, capture_output=True,
+                          text=True, timeout=600)
+    single_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"fed-train --parallel-clients exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    recs_b = rounds_of(single, "fed-train --parallel-clients")
+    print(f"fed-train --parallel-clients: exit 0 in {single_s:.1f} s; rounds "
+          + "; ".join(f"{r['round']}: {r['seconds']:.2f} s (loader {r['loader_wait_seconds']:.2f})"
+                      for r in recs_b))
+
+    ranks = os.path.join(root, "parallel", "ranks")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([*argv(ranks), "--coordinator", f"127.0.0.1:{port}", "--num-procs",
+                               str(PAR_WORLD), "--proc-id", str(r)], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(PAR_WORLD)]
+    outs = wait_all(procs, f"fed-train --num-procs {PAR_WORLD}")
+    ranks_s = time.perf_counter() - t0
+    backends, digests = [], []
+    for out, _ in outs:
+        line = next((l for l in out.splitlines() if l.startswith("[multihost]")), "")
+        backends.append(line)
+        digests.append(json.loads(out.strip().splitlines()[-1])["server_sha256"])
+    for line in backends:
+        print(line)
+    if len(set(digests)) != 1 or not all("backend gloo" in b for b in backends):
+        fail(f"fed-train --num-procs {PAR_WORLD}: server digests {digests}, backends {backends}")
+    recs_c = rounds_of(ranks, f"fed-train --num-procs {PAR_WORLD}")
+    print(f"fed-train --num-procs {PAR_WORLD} on one card: exit 0 on every rank in {ranks_s:.1f} s; "
+          f"one server sha256 on all ranks ({digests[0][:16]}...); rounds "
+          + "; ".join(f"{r['round']}: {r['seconds']:.2f} s" for r in recs_c))
+
+    got = load_checkpoint(os.path.join(ranks, "ckpt", run + "_latest.ckpt"))["server"]
+    want = load_checkpoint(os.path.join(single, "ckpt", run + "_latest.ckpt"))["server"]
+    t0 = time.perf_counter()
+    replay = {how: replay_rounds(torch, root, how, PAR_ROUNDS) for how in ("ranks", "stacked")}
+    start = replay["ranks"][1]
+    for tag, cli, how in (("--num-procs", got, "ranks"), ("--parallel-clients", want, "stacked")):
+        differ = [k for k in cli if not torch.equal(cli[k], replay[how][0][-1][k])]
+        if differ:
+            fail(f"fed-train {tag}: the server differs from this process's replay of its steps "
+                 f"in {len(differ)} leaves ({differ[:5]})")
+    print(f"both CLI runs' servers after {PAR_ROUNDS} rounds equal, bit for bit, this process's "
+          "replay of their steps (the ranks': one client a vmap, the epoch held to the longest "
+          "client's; the stacked run's: three a vmap; the same draws and aggregation)")
+    witness, bad = float64_witness(torch, root, start, {how: replay[how][0] for how in replay})
+    replay_s = time.perf_counter() - t0
+    bad = [f"fed-train --num-procs {PAR_WORLD} against --parallel-clients: {b}" for b in bad]
+    return ({"cli_seconds": single_s, "round_seconds": [r["seconds"] for r in recs_b],
+             "round_loader_wait_seconds": [r["loader_wait_seconds"] for r in recs_b]},
+            {"ranks": PAR_WORLD, "backend": backends[0].split("backend ")[-1],
+             "cli_seconds": ranks_s, "round_seconds": [r["seconds"] for r in recs_c],
+             "server_sha256": digests[0], "bit_equal_to_replay": True,
+             "float64_witness": witness, "replay_seconds": replay_s}, bad)
+
+
+def largest_gap(start, got, want):
+    """Per leaf max |got - want| / max |want - start|, worst first."""
+    gaps = []
+    for k, old in start.items():
+        if old.is_floating_point():
+            scale = (want[k].double() - old.double()).abs().max().item()
+            gap = (got[k].double() - want[k].double()).abs().max().item()
+            gaps.append((gap / max(scale, 1e-300), k))
+    return sorted(gaps, reverse=True)
+
+
+def float64_witness(torch, root, start, cli):
+    """(c)'s two float32 paths against float64, first on the CLI runs' data
+    (``cli``: their replayed servers after each round; 33 train images a
+    client, so a round's second step is one image padded by 31 copies of
+    itself), then on one full batch a client a round (replayed here):
+
+    - the two paths replayed in float64 compute one function over the
+      PAR_ROUNDS rounds: per leaf at most PAR_F64_PATHS of the update apart
+      at any element. Both run cuDNN's deterministic algorithms: with its
+      default ones float64 on the CLI's data does not repeat its own result
+      (reported);
+      A fault in either path, or in the state it carries between rounds,
+      would part them here;
+    - each float32 path sits as far from float64 as the other: phase 7's rule
+      (max(FED_DELTA_MEDIAN, FED_F32_FACTOR x the other path's distance)) on
+      the median over leaves of each leaf's median |d - d_64| / max |d_64|,
+      both ways, after PAR_ROUNDS rounds. Per leaf the rule is a coin toss
+      where float32 is ill-conditioned (a BatchNorm channel of near-zero batch
+      variance turns the paths' last-bit differences into differences of the
+      order of the update, each path's its own), so the leaves that miss it
+      are counted and reported, and a side that is nearer float64 throughout
+      fails here;
+    - on full batches, after the first round, per leaf phase 7's rule, both
+      ways.
+
+    Returns (readings, failures)."""
+    import numpy as np
+
+    def on_host(state):
+        return {k: v.cpu() for k, v in state.items()}
+
+    start, witness, bad = on_host(start), {}, []
+    for data, full, runs in (("cli", False, cli), ("full", True, None)):
+        runs = runs or {how: replay_rounds(torch, root, how, PAR_ROUNDS, full_batches=True)[0]
+                        for how in ("ranks", "stacked")}
+        ref = {how: replay_rounds(torch, root, how, PAR_ROUNDS, full_batches=full,
+                                  dtype=torch.float64)[0] for how in ("ranks", "stacked")}
+        paths = largest_gap(start, ref["stacked"][-1], ref["ranks"][-1])
+        # float64's own conditioning on this data: the ranks' path once more in
+        # float64 with cuDNN's default algorithms (atomics in their sums),
+        # against the deterministic run (reported, no bar)
+        loose = largest_gap(start, replay_rounds(torch, root, "ranks", PAR_ROUNDS,
+                                                 full_batches=full, dtype=torch.float64,
+                                                 deterministic=False)[0][-1], ref["ranks"][-1])
+        if not paths[0][0] <= PAR_F64_PATHS:
+            bad.append(f"{data}: in float64 the stacked path leaves the ranks' by "
+                       f"{paths[0][0]:.3e} of the update ({paths[0][1]})")
+        last, first = {}, {}
+        for how, other in (("ranks", "stacked"), ("stacked", "ranks")):
+            missed, last[how] = median_rule(how, start, runs[how][-1], runs[other][-1],
+                                            ref["ranks"][-1], FED_DELTA_MEDIAN, FED_F32_FACTOR)
+            if full:
+                b_, first[how] = median_rule(f"{data} round 0 {how} against float64", start,
+                                             runs[how][0], runs[other][0], ref["ranks"][0],
+                                             FED_DELTA_MEDIAN, FED_F32_FACTOR)
+                bad += b_
+            last[how + "_missed"] = len(missed)
+        e_r = np.array([e for e, _ in last["ranks"].values()])
+        e_s = np.array([e for e, _ in last["stacked"].values()])
+        m_r, m_s = float(np.median(e_r)), float(np.median(e_s))
+        for how, m, m_other in (("ranks", m_r, m_s), ("stacked", m_s, m_r)):
+            if not m <= max(FED_DELTA_MEDIAN, FED_F32_FACTOR * m_other):
+                bad.append(f"{data}: the {how} path's median leaf {m:.3e} of the update from "
+                           f"float64, the other's {m_other:.3e}")
+        worst = {how: max((e[0], k) for k, e in last[how].items()) for how in ("ranks", "stacked")}
+        w = witness[data] = {
+            "float64_paths_worst": paths[0], "float64_default_cudnn_worst": loose[0],
+            "leaves": int(e_r.size),
+            "median_leaf_ranks": m_r, "median_leaf_stacked": m_s,
+            "worst_leaf_ranks": worst["ranks"], "worst_leaf_stacked": worst["stacked"],
+            "ranks_nearer_leaves": int((e_r < e_s).sum()),
+            "leaves_missing_the_per_leaf_rule": [last["ranks_missed"], last["stacked_missed"]],
+            "float32_paths_worst": update_drift(start, runs["ranks"][-1],
+                                                runs["stacked"][-1])[0]}
+        if full:
+            w["round0_worst_leaf"] = {how: max((e[0], k) for k, e in first[how].items())
+                                      for how in first}
+        what = "one full batch a client a round" if full else "the CLI runs' data"
+        print(f"{PAR_ROUNDS} rounds ({what}) against float64: the two paths in float64 at most "
+              f"{paths[0][0]:.2e} of the update apart at any element ({paths[0][1]}), float64 "
+              f"with cuDNN's default algorithms {loose[0][0]:.2e} from itself ({loose[0][1]}); per leaf median "
+              f"|d - d_64| / max |d_64|, median over {w['leaves']} leaves: ranks {m_r:.2e}, "
+              f"stacked {m_s:.2e}; worst ranks {worst['ranks'][0]:.2e} ({worst['ranks'][1]}), "
+              f"stacked {worst['stacked'][0]:.2e} ({worst['stacked'][1]}); ranks nearer on "
+              f"{w['ranks_nearer_leaves']} leaves; per leaf rule missed on "
+              f"{w['leaves_missing_the_per_leaf_rule']} leaves (ranks, stacked); the float32 "
+              f"paths {w['float32_paths_worst'][0]:.2e} apart ({w['float32_paths_worst'][1]})"
+              + (f"; after round 0, worst leaf ranks {w['round0_worst_leaf']['ranks'][0]:.2e}, "
+                 f"stacked {w['round0_worst_leaf']['stacked'][0]:.2e}" if full else ""))
+    return witness, bad
+
+
+def replay_rounds(torch, root, how, rounds, full_batches=False, dtype=None, deterministic=True):
+    """The CLI runs' arithmetic in this process from their initial state: ``how``
+    = "ranks" steps each client alone (a vmap of one client, the epoch held to
+    the longest client's, as ``MultihostFedRunner`` does), "stacked" all three
+    at once (``--parallel-clients``); then the runner's aggregation. ``dtype``
+    float64 runs it in float64 (images, states and the model). cuDNN runs its
+    deterministic algorithms, as the runner does, unless ``deterministic`` is
+    False. ``full_batches`` keeps FED_BATCH train images a client
+    (``limit_data``): one full batch a round. Returns (the server after each
+    round, the initial server), on the host."""
+    from ccst_tpu_torch.data.lists import parse_list, train_list_path
+
+    from ccst_tpu_torch.config import FedConfig
+    from ccst_tpu_torch.federated.aggregate import aggregate
+    from ccst_tpu_torch.federated.runtime import FederatedRunner
+    from ccst_tpu_torch.parallel.fed_mesh import (ParallelFedTrainer, client_generators,
+                                                  stack_step_batches, stack_trees,
+                                                  unstack_states)
+    from ccst_tpu_torch.utils.metrics import MetricsLogger
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    limit = 1.0
+    if full_batches:
+        n = len(parse_list(train_list_path(root, "pacs", PAR_SOURCES[0], fusion_dir=FED_FUSION,
+                                           target="photo"))[0])
+        limit = (FED_BATCH + 0.5) / (n - int(n * 0.1))  # int(train * limit) == FED_BATCH
+    cfg = FedConfig(dataset="pacs", target="photo", fusion_mode=FED_FUSION, network=FED_NET,
+                    list_root=root, data_root=root, mode="fedavg", rounds=rounds,
+                    parallel_clients=how == "stacked", limit_data=limit)
+    runner = FederatedRunner(cfg, device="cuda", logger=MetricsLogger(None, echo=False))
+    host = lambda state: {k: v.cpu() for k, v in state.items()}  # noqa: E731
+    start = host(runner.server)
+    f64 = dtype == torch.float64
+    if f64:
+        wide = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+        runner.model.double()
+        runner.server = {k: wide(v) for k, v in runner.server.items()}
+        runner.client_states = [dict(runner.server) for _ in runner.client_states]
+        batch_dict = runner.batch_dict
+        runner.batch_dict = lambda b: {k: wide(v) for k, v in batch_dict(b).items()}
+    steps = max(len(c.train) for c in runner.clients)
+    alone = ParallelFedTrainer(runner._train_step, cfg.mode, runner.weights, n_clients=1)
+    servers = []
+    with no_tf32(deterministic=deterministic):
+        for r in range(rounds):
+            if how == "stacked":
+                runner.train_parallel(r)
+            else:
+                states = []
+                for ci in range(runner.n_clients):
+                    batches = stack_step_batches([runner.clients[ci].train], runner.batch_dict,
+                                                 steps)
+                    st, _ = alone.run_epoch(stack_trees([runner.client_states[ci]]),
+                                            runner.server, batches,
+                                            client_generators(cfg.seed, r, [ci]), n_steps=steps)
+                    states += unstack_states(st, 1)
+                runner.server, runner.client_states = aggregate(cfg.mode, states, runner.weights)
+            servers.append(host(runner.server))
+    return servers, start
+
+
+def run_priv_ranks(torch, kind, root, work, inputs):
+    """(d) / (e): PRIV_WORLD ranks of this script's rank worker on the one card;
+    returns each rank's saved result."""
+    os.makedirs(work, exist_ok=True)
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    init = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank-worker",
+                               kind, "--rank", str(r), "--world", str(PRIV_WORLD), "--init", init,
+                               "--work-dir", work], cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(PRIV_WORLD)]
+    outs = wait_all(procs, kind)
+    seconds = time.perf_counter() - t0
+    for out, _ in outs:
+        print("\n".join(l for l in out.splitlines() if l.startswith(("[multihost]", "rank "))))
+    results = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+               for r in range(PRIV_WORLD)]
+    return results, seconds
+
+
+def check_priv_ranks(torch, tag, results, ref, expect_train_k3):
+    """Both ranks' step bit for bit, 18 K3 launches a step on each, and the
+    step against phase 8's float64 step on the joined batch by phase 8's rule
+    (the CPU's float32 step as float32's resolution)."""
+    failures = []
+    a, b = results
+    if a["loss"] != b["loss"] or any(not torch.equal(a["params"][k], b["params"][k])
+                                     for k in a["params"]):
+        failures.append(f"{tag}: the two ranks hold other bits after the step")
+    for r, res in enumerate(results):
+        if res["step_k3"] != 18 or res["train_k3"] != expect_train_k3[r]:
+            failures.append(f"{tag}: rank {r} launched K3 {res['step_k3']} times in the step "
+                            f"(18 expected), {res['train_k3']} in the run "
+                            f"({expect_train_k3[r]} expected)")
+    (c32, l_32), (c64, l_64) = ref["outs"]["cpu32"], ref["outs"]["cpu64"]
+    rel = abs(a["loss"] - l_64) / abs(l_64)
+    if not math.isfinite(a["loss"]) or rel > STEP_LOSS_RTOL:
+        failures.append(f"{tag}: loss {a['loss']} on the ranks, {l_64} float64")
+    bad, errs = median_rule(tag, ref["start"], a["params"], c32, c64, STEP_DELTA_MEDIAN,
+                            STEP_F32_FACTOR)
+    failures += bad
+    worst = max((e, k, e32) for k, (e, e32) in errs.items())
+    print(f"{tag} on {PRIV_WORLD} ranks: one step bit-equal on both; loss {a['loss']:.6f} (float64 "
+          f"{l_64:.6f}); worst leaf median |d - d_64| / max |d_64| {worst[0]:.2e} ({worst[1]}; the "
+          f"CPU float32 step's {worst[2]:.2e}); K3 a rank: {[r['step_k3'] for r in results]} in "
+          f"the step, {[r['train_k3'] for r in results]} in the run")
+    if failures:
+        fail("\n  ".join(failures))
+    return {"loss": a["loss"], "loss_rel_err": rel, "worst_leaf": worst,
+            "k3_step": [r["step_k3"] for r in results], "k3_run": [r["train_k3"] for r in results],
+            "run": results[0]["report"]}
+
+
+def run_parallel_phase(torch, dev, root, smi, refs, enc_path, dec_path, images_per_domain):
+    """Phase 9 on phase 4's tree: (a) the stacked step, (b) the single-process
+    parallel CLI, (c) its multi-process launch on the one card, (d) the
+    two-rank inverter, (e) the decoder trainer on a two-rank mesh. Returns the
+    ``parallel`` line."""
+    from ccst_tpu_torch.privacy.invert import _split_indices, InvertConfig
+
+    t0 = time.perf_counter()
+    stacked = check_stacked_step(torch, dev, root)
+    single, ranks, failures = run_par_cli(torch, root)
+    list_root, names = privacy_lists(root, images_per_domain)
+    inv = refs["invert-train"]
+    val_idx, _ = _split_indices(InvertConfig(), len(names))
+    val_batches = [-(-len(val_idx[r::PRIV_WORLD]) // (INV_BATCH // PRIV_WORLD))
+                   for r in range(PRIV_WORLD)]
+    res, inv_s = run_priv_ranks(torch, "invert", root, os.path.join(root, "parallel", "invert"),
+                                {"root": root, "list_root": list_root, "enc_path": enc_path,
+                                 "images": inv["images"], "init": inv["init"]})
+    invert = check_priv_ranks(torch, "invert-train", res, inv,
+                              [18 * PRIV_STEPS + 9 * v for v in val_batches])
+    dec = refs["train-decoder"]
+    res, dec_s = run_priv_ranks(torch, "decoder", root, os.path.join(root, "parallel", "decoder"),
+                                {"root": root, "enc_path": enc_path, "dec_path": dec_path,
+                                 "content": dec["content"], "style": dec["style"]})
+    decoder = check_priv_ranks(torch, "train-decoder mesh", res, dec,
+                               [18 * PRIV_STEPS] * PRIV_WORLD)
+    if failures:
+        fail("\n  ".join(failures[:40]))
+    k3 = sum(invert["k3_step"]) + sum(invert["k3_run"]) + sum(decoder["k3_step"]) + sum(
+        decoder["k3_run"])
+    return {"card": smi, "network": FED_NET, "clients": len(PAR_SOURCES), "batch": FED_BATCH,
+            "image_size": FED_SIZE, "precision": "float32, TF32 off, cuDNN deterministic",
+            "stacked_step": stacked, "parallel_clients_cli": single, "ranks_cli": ranks,
+            "invert_ranks": {**invert, "seconds": inv_s}, "decoder_mesh": {**decoder,
+                                                                           "seconds": dec_s},
+            "k3_launches": k3, "phase_seconds": time.perf_counter() - t0}
+
+
+def rank_worker(args):
+    """One rank of (d) or (e), started by ``run_priv_ranks``: joins the group,
+    runs the trainer for PRIV_STEPS steps (the inverter in the launch form, each
+    rank its strided shard; the decoder on a mesh of the ranks, each its rows),
+    then one step over the group on its rows of phase 8's batch; saves the
+    step's parameters, loss and K3 counts."""
+    import torch
+    import torch.distributed as dist
+
+    from ccst_tpu_torch.kernels.conv import reflect_conv3x3
+    from ccst_tpu_torch.models import vgg
+    from ccst_tpu_torch.models.convert import load_decoder, load_encoder
+    from ccst_tpu_torch.parallel import multihost
+
+    dev = multihost.initialize(args.init, args.world, args.rank, device="cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(os.path.join(args.work_dir, "inputs.pt"), weights_only=False)
+    enc = load_encoder(inp["enc_path"])
+    out = {}
+    if args.rank_worker == "invert":
+        from ccst_tpu_torch.privacy.generator import StyleInverter
+        from ccst_tpu_torch.privacy.invert import (InvertConfig, InverterTrainer, style_vector,
+                                                   train_inverter)
+
+        cfg = InvertConfig(dataset="pacs", source=PRIV_SOURCE, list_root=inp["list_root"],
+                           data_root=inp["root"], image_size=PRIV_SIZE,
+                           batch_size=INV_BATCH // args.world, steps=PRIV_STEPS,
+                           loss="mse+perceptual", vgg_weights=inp["enc_path"],
+                           out_dir=os.path.join(args.work_dir, "inverter"))
+        reflect_conv3x3.launches = 0
+        out["report"] = train_inverter(cfg, device="cuda")
+        torch.cuda.synchronize()
+        out["train_k3"] = reflect_conv3x3.launches
+        model = StyleInverter(image_size=PRIV_SIZE)
+        model.load_state_dict(inp["init"])
+        trainer = InverterTrainer(InvertConfig(image_size=PRIV_SIZE, loss="mse+perceptual"), enc,
+                                  dev, model=model, group=dist.group.WORLD)
+        images = inp["images"][multihost.group_rows(INV_BATCH)].to(dev)
+        reflect_conv3x3.launches = 0
+        with torch.no_grad():
+            z = style_vector(vgg.prepare_params(enc, torch.bfloat16, dev), images)
+        loss = trainer.step(images, z)
+        params = {k: v.detach().double().cpu() for k, v in trainer.model.state_dict().items()}
+    else:
+        from ccst_tpu_torch.pipeline.train_decoder import (DecoderTrainConfig, DecoderTrainer,
+                                                           train_decoder)
+
+        cfg = DecoderTrainConfig(dataset="pacs", list_root=inp["root"], data_root=inp["root"],
+                                 image_size=PRIV_SIZE, batch_size=DEC_BATCH, steps=PRIV_STEPS,
+                                 vgg_weights=inp["enc_path"], init_decoder=inp["dec_path"],
+                                 out_path=os.path.join(args.work_dir, "decoder.npz"))
+        reflect_conv3x3.launches = 0
+        out["report"] = train_decoder(cfg, mesh=dist.group.WORLD, device="cuda")
+        torch.cuda.synchronize()
+        out["train_k3"] = reflect_conv3x3.launches
+        dcfg = DecoderTrainConfig(lr=1e-4)
+        trainer = DecoderTrainer(dcfg, enc, load_decoder(inp["dec_path"]), dev,
+                                 group=dist.group.WORLD)
+        rows = multihost.group_rows(DEC_BATCH)
+        reflect_conv3x3.launches = 0
+        lc, ls = trainer.step(inp["content"][rows].to(dev), inp["style"][rows].to(dev))
+        loss = dcfg.content_weight * lc + dcfg.style_weight * ls
+        params = {f"{n}/{k}": p.detach().double().cpu() for n, l in trainer.decoder.items()
+                  for k, p in l.items()}
+    torch.cuda.synchronize()
+    out.update(step_k3=reflect_conv3x3.launches, loss=float(loss), params=params)
+    torch.save(out, os.path.join(args.work_dir, f"rank{args.rank}.pt"))
+    print(f"rank {args.rank}: K3 {out['train_k3']} in {PRIV_STEPS} steps, {out['step_k3']} in the "
+          f"step; loss {float(loss):.6f}", flush=True)
+    dist.destroy_process_group()
+    return 0
 
 
 def check_step_bits(torch, dev):
@@ -1545,6 +2178,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--images-per-domain", type=int, default=12)
     ap.add_argument("--batch-size", type=int, default=4)
+    # one rank of phase 9's (d) / (e), started by the script itself
+    ap.add_argument("--rank-worker", choices=["invert", "decoder"], help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--init", help=argparse.SUPPRESS)
+    ap.add_argument("--work-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     images_per_domain, batch = args.images_per_domain, args.batch_size
     if images_per_domain < batch:
@@ -1560,6 +2199,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.rank_worker:
+        return rank_worker(args)
 
     from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
     from ccst_tpu_torch.kernels import _build
@@ -1907,8 +2548,13 @@ def main() -> int:
         fed["step_bits"] = check_step_bits(torch, dev)
 
         # -- 8. decoder training and the privacy inversion on this tree
-        privacy = run_privacy_phase(torch, root, run_step, smi, images_per_domain, enc_path,
-                                    dec_path, stats_dir, enc, dec, dev)
+        privacy, privacy_refs = run_privacy_phase(torch, root, run_step, smi, images_per_domain,
+                                                  enc_path, dec_path, stats_dir, enc, dec, dev)
+
+        # -- 9. parallel clients and multi-process runs on this tree
+        parallel = run_parallel_phase(torch, dev, root, smi, privacy_refs, enc_path, dec_path,
+                                      images_per_domain)
+        launches["K3"] += parallel["k3_launches"]
 
         for d in DOMAINS:
             mean, std = load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
@@ -2252,7 +2898,8 @@ def main() -> int:
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
                "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN),
                "stylize ref, packed; train-decoder, invert-train, invert-eval, gan-train "
-               "--fid-samples (grad-free passes)"),
+               "--fid-samples (grad-free passes); invert-train on 2 ranks, train-decoder on "
+               "a 2-rank mesh (each rank)"),
         "K4": ("fused_adain_multi", "cuda", "ccst_tpu_torch/csrc/adain.cu",
                "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
                "stylize (every engine, both modes)"),
@@ -2317,6 +2964,7 @@ def main() -> int:
     print(f"wall: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"fed": fed}))
     print(json.dumps({"privacy": privacy}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -222,5 +222,5 @@ def test_port_checkpoint_round_trip_and_holdout(tree, tmp_path, capsys):
     report = _last_json(capsys)
     assert report["domain"] == "photo" and report["images"] == 5 and not report["holdout"]
     assert report["recon_dir"].endswith("recon_art_painting_to_photo")
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
+    with pytest.raises(SystemExit, match="needs a coordinator"):
         torch_cli(["invert-train", *argv, "--num-procs", "2", "--device", "cpu"])

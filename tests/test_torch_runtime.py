@@ -132,10 +132,18 @@ def test_resume_restores_round_best_and_fedbn_clients(tree, tmp_path):
 
 
 def test_parallel_flags_are_refused(tree, tmp_path):
-    for kw in ({"parallel_clients": True}, {"client_shards": 2}, {"data_shards": 2},
-               {"coordinator": "localhost:1234"}, {"num_procs": 2}):
-        with pytest.raises(SystemExit, match="Queue 1 item 8"):
+    """The flags of a mesh of more than one rank are refused in one process,
+    naming the launch that provides the ranks."""
+    for kw in ({"client_shards": 2}, {"data_shards": 2},
+               {"parallel_clients": True, "client_shards": 3}):
+        with pytest.raises(SystemExit, match="--num-procs"):
             FederatedRunner(_cfg(FedConfig, tree, str(tmp_path), "fedavg", **kw), device="cpu")
+
+
+def test_parallel_clients_build_a_vmapped_trainer(tree, tmp_path):
+    runner = FederatedRunner(_cfg(FedConfig, tree, str(tmp_path), "fedavg",
+                                  parallel_clients=True), device="cpu")
+    assert runner._ptrainer is not None and runner._ptrainer.n_local == runner.n_clients
 
 
 @pytest.mark.parametrize("deterministic", [True, False])

@@ -1,8 +1,10 @@
 """ccst_tpu_torch stands alone: it imports nothing of ccst_tpu and nothing of
 JAX (nor flax, optax, triton or msgpack), and its own copies of the
-framework-free modules (config, data.lists, data.loader, native,
-federated.data, pipeline.amp_bank, utils.metrics, the Jigsaw permutation
-asset) behave as the originals do.
+framework-free modules (config with ``MeshConfig``, data.lists, data.loader,
+data.digits, native, federated.data, pipeline.amp_bank, utils.metrics, the
+Jigsaw permutation asset) behave as the originals do. The worker that the
+multi-process tests spawn (``tests/torch_multihost_worker.py``) is walked
+with the package.
 
 Only this test file imports both packages. The copies are held to the
 originals exactly: same dataclass fields and defaults, same registry, same
@@ -33,7 +35,8 @@ DOMAINS = ["art_painting", "cartoon", "photo", "sketch"]
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_multihost_worker.py")]
     for dp, _, fs in os.walk(os.path.join(REPO, "ccst_tpu_torch")):
         files += [os.path.join(dp, f) for f in fs if f.endswith(".py")]
     return sorted(files)
@@ -64,7 +67,10 @@ def test_port_has_sources_to_walk():
             "ccst_tpu_torch/native/__init__.py", "ccst_tpu_torch/pipeline/stylize.py",
             "ccst_tpu_torch/federated/runtime.py", "ccst_tpu_torch/federated/data.py",
             "ccst_tpu_torch/pipeline/amp_bank.py", "ccst_tpu_torch/utils/metrics.py",
-            "ccst_tpu_torch/utils/checkpoint.py", "ccst_tpu_torch/models/classifiers.py"} <= names
+            "ccst_tpu_torch/utils/checkpoint.py", "ccst_tpu_torch/models/classifiers.py",
+            "ccst_tpu_torch/parallel/fed_mesh.py", "ccst_tpu_torch/parallel/multihost.py",
+            "ccst_tpu_torch/federated/multihost_runtime.py", "ccst_tpu_torch/data/digits.py",
+            "tests/torch_multihost_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -79,7 +85,8 @@ def test_no_import_of_ccst_tpu_or_jax(path):
 # ---- config ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["StylizeConfig", "FusionConfig", "FedConfig", "DatasetSpec"])
+@pytest.mark.parametrize("name", ["StylizeConfig", "FusionConfig", "FedConfig", "DatasetSpec",
+                                  "MeshConfig"])
 def test_config_dataclass_fields_and_defaults(name):
     def describe(cls):
         return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
@@ -101,6 +108,41 @@ def test_fed_config_properties_and_constants_equal_original():
         assert dataclasses.asdict(ours.spec) == dataclasses.asdict(theirs.spec)
     assert (tconfig.IMAGENET_MEAN, tconfig.IMAGENET_STD) == (jconfig.IMAGENET_MEAN,
                                                             jconfig.IMAGENET_STD)
+
+
+@pytest.mark.parametrize("sizes", [dict(), dict(client=3), dict(client=1, data=2, model=-1),
+                                   dict(client=2, data=-1, model=2)])
+@pytest.mark.parametrize("n_devices", [1, 4, 6, 8])
+def test_mesh_config_axis_sizes_equal_original(sizes, n_devices):
+    def sizes_of(mod):
+        try:
+            return mod.MeshConfig(**sizes).axis_sizes(n_devices)
+        except ValueError as e:
+            return f"ValueError: {e}"
+
+    assert sizes_of(tconfig) == sizes_of(jconfig)
+
+
+def test_digits_module_equals_original(tmp_path):
+    """data/digits.py is the original's text with the port's loader imported."""
+    import ccst_tpu.data.digits as jdig
+    import ccst_tpu_torch.data.digits as tdig
+
+    with open(jdig.__file__) as f:
+        theirs = f.read().replace("from ccst_tpu.data.loader", "from ccst_tpu_torch.data.loader")
+    with open(tdig.__file__) as f:
+        assert f.read() == theirs
+    assert tdig.OFFICE_CALTECH_LABELS == jdig.OFFICE_CALTECH_LABELS
+    assert tdig.DOMAINNET_LABELS == jdig.DOMAINNET_LABELS
+    imgs = (np.random.default_rng(0).random((5, 20, 20)) * 255).astype(np.uint8)
+    labels = np.arange(5)
+    ours = list(tdig.DigitsArrayLoader(imgs, labels, batch_size=2, image_size=28, shuffle=True))
+    want = list(jdig.DigitsArrayLoader(imgs, labels, batch_size=2, image_size=28, shuffle=True))
+    assert len(ours) == len(want) == 3
+    for a, b in zip(ours, want):
+        np.testing.assert_array_equal(a.images, b.images)
+        np.testing.assert_array_equal(a.labels, b.labels)
+        assert a.valid == b.valid
 
 
 def test_dataset_spec_rejects_unknown_names():
