@@ -48,6 +48,16 @@ strided shard of the images, the gradients averaged over the ranks);
 ``calibrate`` writes the int8 scales file that ``stylize`` of either package
 picks up (``--scales PATH``, or the default path next to the style banks).
 
+  ccst-tpu-torch repro     --dataset pacs --data-root $DATA --vgg-weights V --decoder-weights D
+  ccst-tpu-torch summarize logs/run_seed1.jsonl logs/run_seed2.jsonl [--expected-rounds 500]
+  ccst-tpu-torch plot      logs/a.jsonl logs/b.jsonl -o curves.png [--metrics test_acc]
+
+``repro`` runs the whole chain (style banks, stylize, reorganize, lists,
+``fed-train`` for every arm, target and seed, the results table) through these
+subcommands on ``--device``; ``summarize`` and ``plot`` read ``fed-train``'s
+JSONL logs. Of ``ccst-tpu``'s subcommands the port lacks only ``bench``, which
+runs the TPU benchmark.
+
 Weights are ``.pth`` (reference checkpoints) or the native ``.npz`` that
 ``ccst-tpu`` also reads.
 """
@@ -466,8 +476,45 @@ def cmd_gan_train(args) -> int:
     return 0
 
 
+def cmd_plot(args) -> int:
+    from ccst_tpu_torch.utils.plotting import plot_runs
+
+    out = plot_runs(
+        args.logs, args.out,
+        metrics=args.metrics.split(",") if args.metrics else None,
+        title=args.title,
+    )
+    print(out)
+    return 0
+
+
+def cmd_repro(args) -> int:
+    """Paper-reproduction driver (pipeline/repro.py): the full
+    banks->stylize->reorganize->lists->fed-train->summary chain for a named
+    dataset, with the reference README's hyperparameters as defaults."""
+    from ccst_tpu_torch.pipeline.repro import ReproConfig, run_repro
+
+    cfg = _dataclass_from_args(ReproConfig, args)
+    if not cfg.data_root:
+        raise SystemExit(
+            "repro needs --data-root (the directory holding "
+            f"{cfg.dataset.upper()}/kfold/... and txt_lists/; "
+            "see docs/REPRODUCE.md for the exact layout)"
+        )
+    run_repro(cfg)
+    return 0
+
+
+def cmd_summarize(args) -> int:
+    from ccst_tpu_torch.utils.metrics import summarize_many
+
+    print(json.dumps(summarize_many(args.logs, args.expected_rounds), indent=2))
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     from ccst_tpu_torch.config import FedConfig, StylizeConfig
+    from ccst_tpu_torch.pipeline.repro import ReproConfig
 
     parser = argparse.ArgumentParser(prog="ccst-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -632,10 +679,33 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--out-path", default="decoder_trained.npz")
     p.set_defaults(fn=cmd_train_decoder)
 
+    p = sub.add_parser("summarize", help="read_log-style multi-run summary")
+    p.add_argument("logs", nargs="+")
+    p.add_argument("--expected-rounds", type=int, default=None)
+    p.set_defaults(fn=cmd_summarize)
+
+    p = sub.add_parser(
+        "plot", help="training-curve PNG from metrics JSONL (plotter.ipynb)"
+    )
+    p.add_argument("logs", nargs="+")
+    p.add_argument("-o", "--out", default="curves.png")
+    p.add_argument("--metrics", default="", help="comma-separated keys")
+    p.add_argument("--title", default=None)
+    p.set_defaults(fn=cmd_plot)
+
     for p in sub.choices.values():
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu runs the plain versions; "
-                            "the list subcommands and amp-bank ignore it)")
+                            "the list subcommands, amp-bank, summarize and plot ignore it)")
+
+    # after the loop above: ReproConfig has its own --device, which every stage gets
+    p = sub.add_parser(
+        "repro",
+        help="one-command paper reproduction: banks -> stylize -> reorg -> "
+        "lists -> fed-train (arm x target x seed) -> results table",
+    )
+    _add_dataclass_args(p, ReproConfig)
+    p.set_defaults(fn=cmd_repro)
 
     args = parser.parse_args(argv)
     return args.fn(args)

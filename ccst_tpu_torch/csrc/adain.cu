@@ -161,7 +161,125 @@ cudaError_t launch_adain(const void* x, void* y, const void* s_mean, const void*
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// AdaIN with the content statistics given: the row-sharded stylize path
+// (parallel/spatial.py), where a rank holds only a block of each image's
+// rows, merges every (n, c) mean and 1 / std over the ranks first (K5 and
+// ops/welford.py::welford_psum) and passes them in. The formula is
+// adain_kernel's, one rounding to the feature type:
+//   out[s] = alpha * ((x - mean) * inv_std * s_std[s] + s_mean[s]) + (1 - alpha) * x
+// Elementwise, so bound by device memory: the features read once, S outputs
+// written. A thread takes one 16-byte unit (8 bf16 / 4 float32 channels of a
+// row; one element where rows or statistics are not 16-byte aligned),
+// neighbouring threads neighbouring units, over a grid-stride loop. The
+// statistics are small and stay in L1 / L2; they are read four floats a
+// load, because scalar loads of them (4 + 2 S a channel) left the bf16 kernel
+// load-bound at 27% of its byte bound (float32: 74%; NVIDIA H100 80GB HBM3,
+// 700 W).
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + i);
+    v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+  }
+}
+
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(THREADS)
+adain_given_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ mean,
+                   const float* __restrict__ inv_std, const float* __restrict__ s_mean,
+                   const float* __restrict__ s_std, long long rows, int HW, int C, int S,
+                   float alpha) {
+  constexpr int VEC = VECTOR ? 16 / static_cast<int>(sizeof(T)) : 1;
+  const int per_row = C / VEC;
+  const long long units = rows * per_row;
+  const long long plane = rows * C;  // elements of one style's output
+  const float beta = 1.0f - alpha;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; u < units;
+       u += stride) {
+    const long long row = u / per_row;
+    const int c0 = static_cast<int>(u - row * per_row) * VEC;
+    const long long at = row * C + c0;
+    const long long nc = row / HW * C + c0;
+    float f[VEC], mu[VEC], inv[VEC];
+    if constexpr (VECTOR) {
+      unpack(*reinterpret_cast<const uint4*>(x + at), f, x);
+      load_floats(mean + nc, mu);
+      load_floats(inv_std + nc, inv);
+    } else {
+      f[0] = to_float(x[at]);
+      mu[0] = mean[nc];
+      inv[0] = inv_std[nc];
+    }
+    for (int s = 0; s < S; ++s) {
+      float sm[VEC], ss[VEC], o[VEC];
+      if constexpr (VECTOR) {
+        load_floats(s_mean + s * C + c0, sm);
+        load_floats(s_std + s * C + c0, ss);
+      } else {
+        sm[0] = s_mean[s * C + c0];
+        ss[0] = s_std[s * C + c0];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float styl = (f[e] - mu[e]) * inv[e] * ss[e] + sm[e];
+        o[e] = alpha * styl + beta * f[e];
+      }
+      T* dst = y + s * plane + at;
+      if constexpr (VECTOR) {
+        *reinterpret_cast<uint4*>(dst) = pack(o, dst);
+      } else {
+        from_float(*dst, o[0]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_adain_given(const void* x, void* y, const void* mean, const void* inv_std,
+                               const void* s_mean, const void* s_std, long long rows, int HW,
+                               int C, int S, float alpha, cudaStream_t st) {
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vector = (static_cast<size_t>(C) * sizeof(T)) % 16 == 0 && aligned(x) &&
+                      aligned(y) && aligned(mean) && aligned(inv_std) && aligned(s_mean) &&
+                      aligned(s_std);
+  const long long units = rows * (vector ? C / (16 / static_cast<int>(sizeof(T))) : C);
+  const long long want = (units + THREADS - 1) / THREADS;
+  const unsigned blocks = static_cast<unsigned>(want < 132 * 32 ? want : 132 * 32);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  const float *mu = static_cast<const float*>(mean), *inv = static_cast<const float*>(inv_std),
+              *sm = static_cast<const float*>(s_mean), *ss = static_cast<const float*>(s_std);
+  if (vector)
+    adain_given_kernel<T, true><<<blocks, THREADS, 0, st>>>(xt, yt, mu, inv, sm, ss, rows, HW, C,
+                                                            S, alpha);
+  else
+    adain_given_kernel<T, false><<<blocks, THREADS, 0, st>>>(xt, yt, mu, inv, sm, ss, rows, HW,
+                                                             C, S, alpha);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Plain C entry point of the given-statistics AdaIN (bound with ctypes).
+// x: (N, HW, C) bf16 (is_f32 = 0) or float32, contiguous, rows = N * HW;
+// y: (S, N, HW, C) of the same type; mean, inv_std: (N, C) float32; s_mean,
+// s_std: (S, C) float32. Launches on `stream` and returns the first CUDA
+// error (0 on success).
+extern "C" int ccst_adain_given(const void* x, void* y, const void* mean, const void* inv_std,
+                                const void* s_mean, const void* s_std, long long rows, int HW,
+                                int C, int S, int is_f32, float alpha, void* stream) {
+  if (rows <= 0 || HW <= 0 || rows % HW || C <= 0 || S <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_f32 ? launch_adain_given<float>(x, y, mean, inv_std, s_mean, s_std, rows, HW, C, S,
+                                         alpha, st)
+             : launch_adain_given<__nv_bfloat16>(x, y, mean, inv_std, s_mean, s_std, rows, HW, C,
+                                                 S, alpha, st);
+  return static_cast<int>(err);
+}
 
 // Plain C entry point (bound with ctypes). x: (N, HW, C) bf16 (is_f32 = 0) or
 // float32, contiguous; y: (S, N, HW, C) of the same type; s_mean, s_std: (S, C)

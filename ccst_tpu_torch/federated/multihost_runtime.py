@@ -9,7 +9,8 @@ boundary, each client shard owns a contiguous block of clients (the clients
 must divide evenly over the shards) and iterates only its clients' loaders
 (the DistributedSampler analogue), stepping them with ``ParallelFedTrainer``.
 Ranks of a data group split each of their clients' batches and sum
-gradients, BatchNorm batch statistics and row counts inside the step.
+gradients, BatchNorm batch statistics and row counts inside the step; RSC's
+batch percentile and MixStyle's permutation see the gathered whole batch.
 
 Every round runs exactly the global maximum number of local steps
 (``stack_step_batches(..., n_steps)``); a client whose epoch has ended
@@ -59,7 +60,7 @@ from ccst_tpu_torch.parallel.fed_mesh import (
     stack_step_batches,
     stack_trees,
     unstack_states,
-    with_group_batchnorm,
+    with_data_group,
 )
 from ccst_tpu_torch.utils.metrics import MetricsLogger
 
@@ -121,8 +122,9 @@ class MultihostFedRunner(FederatedRunner):
         step = self._train_step
         if data_shards > 1:
             self.data = DataGroup(self.mesh.data_group)
-            step = self.make_step(with_group_batchnorm(self.model, self.data),
-                                  data_reduce=self.data.reduce, data_size=data_shards)
+            step = self.make_step(with_data_group(self.model, self.data),
+                                  data_reduce=self.data.reduce, data_gather=self.data.gather,
+                                  data_size=data_shards)
         self.trainer = ParallelFedTrainer(step, cfg.mode, self.weights,
                                           n_clients=len(self.my_clients))
 

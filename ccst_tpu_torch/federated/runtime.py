@@ -75,6 +75,22 @@ def _to_cpu(state: State) -> State:
     return {k: v.detach().cpu() for k, v in state.items()}
 
 
+def batch_dict(batch: Batch, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """A loader batch on ``dev``: uint8 images become ``x / 255`` there (u8
+    transport: a quarter of the bytes; divided by a device scalar, the same
+    bits as JAX's division, where a Python divisor would become a product
+    with its reciprocal on the card), labels and the padding mask."""
+    mask = (np.arange(batch.images.shape[0]) < batch.valid).astype(np.float32)
+    imgs = torch.from_numpy(np.ascontiguousarray(batch.images)).to(dev, non_blocking=True)
+    if imgs.dtype == torch.uint8:
+        imgs = imgs.float() / torch.full((), 255.0, device=dev)
+    return {
+        "images": imgs,
+        "labels": torch.from_numpy(batch.labels.astype(np.int64)).to(dev, non_blocking=True),
+        "mask": torch.from_numpy(mask).to(dev, non_blocking=True),
+    }
+
+
 class FederatedRunner:
     def __init__(
         self,
@@ -156,20 +172,8 @@ class FederatedRunner:
         return [c.name for c in self.clients]
 
     def batch_dict(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        """A loader batch on the device: uint8 images become ``x / 255`` there
-        (u8 transport: a quarter of the bytes; divided by a device scalar, the
-        same bits as JAX's division, where a Python divisor would become a
-        product with its reciprocal on the card), labels and the padding mask."""
-        dev = self.device
-        mask = (np.arange(batch.images.shape[0]) < batch.valid).astype(np.float32)
-        imgs = torch.from_numpy(np.ascontiguousarray(batch.images)).to(dev, non_blocking=True)
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / torch.full((), 255.0, device=dev)
-        return {
-            "images": imgs,
-            "labels": torch.from_numpy(batch.labels.astype(np.int64)).to(dev, non_blocking=True),
-            "mask": torch.from_numpy(mask).to(dev, non_blocking=True),
-        }
+        """:func:`batch_dict` on the runner's device."""
+        return batch_dict(batch, self.device)
 
     # ------------------------------------------------------------------
     # local training

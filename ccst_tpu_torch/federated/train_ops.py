@@ -38,7 +38,11 @@ are 0-d tensors on the device; nothing here waits for the device.
 rank's share of a batch split over a data group of ranks: the masked means
 divide by the group's row count, and the gradients, the BatchNorm batch
 statistics (the model's BatchNorm swapped for ``GroupBatchNorm``) and the
-metrics are summed over the group inside the step.
+metrics are summed over the group inside the step. What mixes rows sees the
+client's whole batch, as ``ccst_tpu``'s step under a (client, data) mesh
+does: ``data_gather`` gathers RSC's per-row prediction changes for its batch
+percentile, and the model's MixStyle (``fed_mesh.with_data_group``) the rows'
+statistics for its permutation, whose draw covers the whole batch.
 """
 from __future__ import annotations
 
@@ -113,12 +117,14 @@ def _head(state: State, features: torch.Tensor) -> torch.Tensor:
     return F.linear(features, state[f"{name}.weight"], state[f"{name}.bias"])
 
 
-def _rsc_logits(model, state: State, images, labels, n_classes: int, mask_valid):
+def _rsc_logits(model, state: State, images, labels, n_classes: int, mask_valid,
+                gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """RSC's muted logits (utils/rsc_utils.py:32-75) from ONE backbone forward
     (BN statistics update once): mute the features of the top third of the
     head's gradient per sample, unmute the samples in the bottom two thirds of
     the prediction change. ``mask_valid`` keeps padding out of the batch
-    percentile."""
+    percentile; ``gather`` (a batch split over a data group) joins the rows'
+    changes and masks, so that the percentile is the whole batch's."""
     feats = forward(model, state, images, True, return_features=True)
     # F.one_hot reads its input's max on the host, which vmap refuses
     onehot = (labels.long()[:, None] == torch.arange(n_classes, device=labels.device)
@@ -133,7 +139,9 @@ def _rsc_logits(model, state: State, images, labels, n_classes: int, mask_valid)
         s = F.softmax(_head(state, feats), dim=1)
         s_muted = F.softmax(_head(state, feats * mask_f), dim=1)
         changes = torch.sum(s * onehot, dim=1) - torch.sum(s_muted * onehot, dim=1)
-        pct_b = _masked_percentile(changes.float(), mask_valid, RSC_PERCENT).to(changes.dtype)
+        every, valid = ((changes, mask_valid) if gather is None
+                        else (gather(changes), gather(mask_valid)))
+        pct_b = _masked_percentile(every.float(), valid, RSC_PERCENT).to(changes.dtype)
     mask_b = (changes < pct_b).to(feats.dtype)[:, None]
     return _head(state, feats * torch.maximum(mask_f, mask_b))
 
@@ -173,20 +181,17 @@ def make_train_step(
     min_scale: float = 0.8,
     max_scale: float = 1.0,
     data_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    data_gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     data_size: int = 1,
 ) -> TrainStep:
     """One client-local SGD step (module docstring). ``data_reduce`` sums a
     tensor over a data group of ``data_size`` ranks, each holding its share of
-    the batch."""
+    the batch; ``data_gather`` concatenates a tensor's rows over it."""
     dg = dg_method.lower()
     is_prox = mode.lower() == "fedprox"
     param_keys, buffer_keys = model_keys(model)
     n_mix = getattr(model, "n_mix", 0) if dg == "mixstyle" else 0
     reduce = data_reduce if data_reduce is not None else (lambda t: t)
-    if data_reduce is not None and dg in ("rsc", "mixstyle"):
-        raise ValueError(f"{dg_method} mixes rows across the batch (RSC's batch percentile, "
-                         "MixStyle's permutation): a batch split over data shards is not "
-                         "supported for it")
 
     def draw(generator: torch.Generator, batch) -> Draws:
         n, h, w, _ = batch["images"].shape
@@ -226,7 +231,7 @@ def make_train_step(
             jig_corr = torch.sum((jig_logits.argmax(1) == jig_labels).float() * mask)
         elif dg == "rsc":
             images = prepare(batch["images"], draws)
-            logits = _rsc_logits(model, state, images, labels, n_classes, mask)
+            logits = _rsc_logits(model, state, images, labels, n_classes, mask, data_gather)
             loss = _masked_mean(cross_entropy(logits, labels), mask, count)
         else:  # no_DG / mixstyle
             kw = {"mix_draws": draws["mix"]} if n_mix else {}

@@ -36,6 +36,8 @@ SIGNATURES = {
     # x, y, s_mean, s_std, N, HW, C, S, cluster, rows_per_block, resident, is_f32,
     # alpha, eps, n_var, stream
     "ccst_adain": [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P],
+    # x, y, mean, inv_std, s_mean, s_std, rows, HW, C, S, is_f32, alpha, stream
+    "ccst_adain_given": [_P] * 6 + [_L] + [_I] * 4 + [_F] + [_P],
     # x, partials, out, tickets, R, C, chunk, is_f32, stream
     "ccst_channel_moments": [_P] * 4 + [_L] + [_I] * 3 + [_P],
     # stream

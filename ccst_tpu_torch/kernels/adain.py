@@ -12,7 +12,10 @@ by ``kernels/_build.py``); its header says what bounds it on the H100 and how
 the design answers that. :func:`fused_adain_multi` restyles the same features
 under S banks in one launch (statistics once, S outputs), as the stylize
 path's ``stylize_multi`` needs; :func:`fused_adain` is its S = 1 case. Unlike
-the TPU kernel there is no ``C % 128`` rule.
+the TPU kernel there is no ``C % 128`` rule. :func:`fused_adain_given` is the
+same formula with the content statistics given: the row-sharded stylize path
+(``parallel/spatial.py``) merges them over its ranks first, since a rank holds
+only part of each image's plane.
 
 On a CPU tensor the wrappers compute the plain versions; on a CUDA tensor
 they launch the kernel or raise.
@@ -56,14 +59,20 @@ def plan_adain(hw: int) -> AdainPlan:
 
 def fused_adain_reference(
     feat: torch.Tensor, s_mean, s_std, alpha: float = 1.0, eps: float = 1e-5,
-    ddof: int = 1,
+    ddof: int = 1, mean=None, inv_std=None,
 ) -> torch.Tensor:
-    """Plain version, the formula of the TPU kernel in float32."""
+    """Plain version, the formula of the TPU kernel in float32. ``mean`` and
+    ``inv_std``, (N, C) float32, replace the statistics of ``feat`` when
+    given (the plain version of :func:`fused_adain_given`)."""
     n, h, w, c = feat.shape
     x = feat.float()
-    mean = x.mean(dim=(1, 2), keepdim=True)
-    var = torch.square(x - mean).sum(dim=(1, 2), keepdim=True) / max(h * w - ddof, 1)
-    inv_std = torch.rsqrt(var + eps)
+    if mean is None:
+        mean = x.mean(dim=(1, 2), keepdim=True)
+        var = torch.square(x - mean).sum(dim=(1, 2), keepdim=True) / max(h * w - ddof, 1)
+        inv_std = torch.rsqrt(var + eps)
+    else:
+        mean = mean.float().reshape(n, 1, 1, c)
+        inv_std = inv_std.float().reshape(n, 1, 1, c)
     s_mean = torch.as_tensor(s_mean, dtype=torch.float32, device=feat.device).view(c)
     s_std = torch.as_tensor(s_std, dtype=torch.float32, device=feat.device).view(c)
     stylized = (x - mean) * inv_std * s_std + s_mean
@@ -72,12 +81,14 @@ def fused_adain_reference(
 
 def fused_adain_multi_reference(
     feat: torch.Tensor, s_means, s_stds, alpha: float = 1.0, eps: float = 1e-5,
-    ddof: int = 1,
+    ddof: int = 1, mean=None, inv_std=None,
 ) -> torch.Tensor:
-    """Plain version of :func:`fused_adain_multi`: the plain single-style
+    """Plain version of :func:`fused_adain_multi` (with ``mean`` and
+    ``inv_std``: of :func:`fused_adain_given`): the plain single-style
     version once per bank, stacked to (S, N, H, W, C)."""
     return torch.stack([
-        fused_adain_reference(feat, m, s, alpha, eps, ddof) for m, s in zip(s_means, s_stds)
+        fused_adain_reference(feat, m, s, alpha, eps, ddof, mean, inv_std)
+        for m, s in zip(s_means, s_stds)
     ])
 
 
@@ -133,12 +144,7 @@ def fused_adain_multi(
         raise ValueError("fused_adain takes a contiguous NHWC tensor")
     if feat.numel() == 0:
         raise ValueError("fused_adain needs at least one element")
-    s_means = torch.as_tensor(s_means, dtype=torch.float32, device=feat.device).contiguous()
-    s_stds = torch.as_tensor(s_stds, dtype=torch.float32, device=feat.device).contiguous()
-    if s_means.ndim != 2 or s_means.shape[0] == 0 or s_means.shape[1] != c or (
-            s_stds.shape != s_means.shape):
-        raise ValueError(f"style statistics {tuple(s_means.shape)} / {tuple(s_stds.shape)} "
-                         f"do not fit {c} channels")
+    s_means, s_stds = _style_rows(s_means, s_stds, c, feat.device)
     from ccst_tpu_torch.kernels import _build
 
     lib = _build.library()
@@ -160,6 +166,62 @@ def fused_adain_multi(
 
 
 fused_adain_multi.launches = 0
+
+
+def _style_rows(s_means, s_stds, c: int, device) -> tuple:
+    s_means = torch.as_tensor(s_means, dtype=torch.float32, device=device).contiguous()
+    s_stds = torch.as_tensor(s_stds, dtype=torch.float32, device=device).contiguous()
+    if s_means.ndim != 2 or s_means.shape[0] == 0 or s_means.shape[1] != c or (
+            s_stds.shape != s_means.shape):
+        raise ValueError(f"style statistics {tuple(s_means.shape)} / {tuple(s_stds.shape)} "
+                         f"do not fit {c} channels")
+    return s_means, s_stds
+
+
+def fused_adain_given(
+    feat: torch.Tensor, mean: torch.Tensor, inv_std: torch.Tensor, s_means: torch.Tensor,
+    s_stds: torch.Tensor, alpha: float = 1.0,
+) -> torch.Tensor:
+    """:func:`fused_adain_multi` with the content statistics given: (N, H, W,
+    C) features, their per-(n, c) ``mean`` and ``inv_std`` (1 / sqrt(var +
+    eps)), (N, C) float32, and the S rows of the (S, C) style statistics ->
+    (S, N, H, W, C) in the input dtype, from one launch of an elementwise
+    kernel (``ccst_adain_given`` in ``csrc/adain.cu``). Raises if an input
+    requires grad under grad mode: the kernel has no backward."""
+    refuse_autograd("fused_adain_given", feat, mean, inv_std, s_means, s_stds)
+    if feat.device.type == "cpu":
+        return fused_adain_multi_reference(feat, s_means, s_stds, alpha, mean=mean,
+                                           inv_std=inv_std)
+    n, h, w, c = feat.shape
+    if feat.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_adain_given takes bfloat16 or float32, got {feat.dtype}")
+    if not feat.is_contiguous() or feat.numel() == 0:
+        raise ValueError("fused_adain_given takes a contiguous, non-empty NHWC tensor")
+    mean = mean.to(device=feat.device, dtype=torch.float32).contiguous()
+    inv_std = inv_std.to(device=feat.device, dtype=torch.float32).contiguous()
+    if mean.shape != (n, c) or inv_std.shape != (n, c):
+        raise ValueError(f"content statistics {tuple(mean.shape)} / {tuple(inv_std.shape)} "
+                         f"do not fit {n} images of {c} channels")
+    s_means, s_stds = _style_rows(s_means, s_stds, c, feat.device)
+    from ccst_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    s = s_means.shape[0]
+    out = torch.empty((s, n, h, w, c), dtype=feat.dtype, device=feat.device)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        rc = lib.ccst_adain_given(
+            feat.data_ptr(), out.data_ptr(), mean.data_ptr(), inv_std.data_ptr(),
+            s_means.data_ptr(), s_stds.data_ptr(), n * h * w, h * w, c, s,
+            int(feat.dtype == torch.float32), float(alpha), stream,
+        )
+    if rc:
+        raise RuntimeError(f"fused_adain_given launch failed: CUDA error {rc}")
+    fused_adain_given.launches += 1
+    return out
+
+
+fused_adain_given.launches = 0
 
 
 def fused_adain(

@@ -107,12 +107,16 @@ class MixStyle(nn.Module):
     takes no generator, so lambda comes from ``numpy.random.Generator.beta``
     seeded by one draw of the generator. ``forward`` applies given draws and
     is pure (a closed gate selects the input itself), so ``torch.func.vmap``
-    can apply one client's draws a slice.
+    can apply one client's draws a slice. ``gather`` (set by
+    ``parallel/fed_mesh.py::with_data_group`` for a batch split over ranks)
+    joins the rows' statistics of the whole batch, whose indices the
+    permutation then holds.
     """
 
     def __init__(self, p: float = 0.5, alpha: float = 0.1, eps: float = 1e-6):
         super().__init__()
         self.p, self.alpha, self.eps = p, alpha, eps
+        self.gather = None
 
     def draw(self, generator: torch.Generator, b: int
              ) -> Tuple[bool, np.ndarray, torch.Tensor]:
@@ -140,8 +144,11 @@ class MixStyle(nn.Module):
         var = xf.var(dim=(2, 3), unbiased=False, keepdim=True).detach()
         sig = torch.sqrt(var + self.eps)
         x_normed = (xf - mu) / sig
-        mu_mix = mu * lmda + mu[perm] * (1 - lmda)
-        sig_mix = sig * lmda + sig[perm] * (1 - lmda)
+        mu_all, sig_all = mu, sig
+        if self.gather is not None:
+            mu_all, sig_all = self.gather(torch.cat([mu, sig], dim=1)).chunk(2, dim=1)
+        mu_mix = mu * lmda + mu_all[perm] * (1 - lmda)
+        sig_mix = sig * lmda + sig_all[perm] * (1 - lmda)
         return torch.where(gate, (x_normed * sig_mix + mu_mix).to(x.dtype), x)
 
 

@@ -395,29 +395,34 @@ def prepare_decoder_q8s(params, scales: Dict[str, float], dtype=torch.bfloat16, 
 # ---------------------------------------------------------------------------
 
 
-def _encode(prep: Dict, images: torch.Tensor, dtype: torch.dtype, fused: bool) -> torch.Tensor:
+def _encode(prep: Dict, images: torch.Tensor, dtype: torch.dtype, fused: bool,
+            qconv=qconv3x3_s8) -> torch.Tensor:
+    """The int8-static encoder; ``qconv`` runs each K0 conv of the unfused
+    path (``parallel/spatial.py`` wraps it in a halo exchange)."""
     x = vgg.conv1x1(images.to(dtype), prep["conv0"])  # 1x1 RGB rescale, no relu
     xq = pack_s2d(quantize_static(x, prep["__scales__"]["conv1_1"] / 127.0))
     if fused:
         xq = encoder_level1(xq, prep["conv1_1"], prep["conv1_2"], prep["__level1__"])
     else:
-        xq = qconv3x3_s8(xq, prep["conv1_1"], True, dtype, "edge")
-        xq = qconv3x3_s8(xq, prep["conv1_2"], True, dtype, "edge")
+        xq = qconv(xq, prep["conv1_1"], True, dtype, "edge")
+        xq = qconv(xq, prep["conv1_2"], True, dtype, "edge")
         xq = phase_max(xq, 64)  # int8 max == max on the shared scale
     # conv4_1 dequantizes: relu4_1 features in dtype
-    return _walk(_ENC_TAIL, xq, lambda t, layer: qconv3x3_s8(
+    return _walk(_ENC_TAIL, xq, lambda t, layer: qconv(
         t, prep[layer.name], layer.relu, dtype, "reflect"))
 
 
-def _decode(prep: Dict, feat: torch.Tensor, dtype: torch.dtype, fused: bool) -> torch.Tensor:
+def _decode(prep: Dict, feat: torch.Tensor, dtype: torch.dtype, fused: bool,
+            qconv=qconv3x3_s8) -> torch.Tensor:
+    """The int8-static decoder; ``qconv`` as for :func:`_encode`."""
     xq = quantize_static(feat, prep["__scales__"]["dconv4_1"] / 127.0)
-    xq = _walk(_DEC_MID, xq, lambda t, layer: qconv3x3_s8(
+    xq = _walk(_DEC_MID, xq, lambda t, layer: qconv(
         t, prep[layer.name], layer.relu, dtype, "reflect"))
     if fused:
         y = decoder_level1(xq, prep["dconv1_2"], prep["dconv1_1"], dtype, prep["__level1__"])
     else:
-        xq = qconv3x3_s8(xq, prep["dconv1_2"], True, dtype, "edge")
-        y = qconv3x3_s8(xq, prep["dconv1_1"], False, dtype, "edge")
+        xq = qconv(xq, prep["dconv1_2"], True, dtype, "edge")
+        y = qconv(xq, prep["dconv1_1"], False, dtype, "edge")
     return unpack_d2s(y, 3)
 
 

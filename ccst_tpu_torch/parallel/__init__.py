@@ -1,1 +1,2 @@
-"""Client-parallel and multi-process training on torch.distributed."""
+"""Client-parallel and multi-process training, and the sharded stylize and
+classifier paths, on torch.distributed."""

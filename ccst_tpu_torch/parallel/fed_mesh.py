@@ -14,7 +14,8 @@ idiom, where JAX's mesh is a grid of local devices): :class:`FedMesh` of
 ``client`` group (the ranks of one data index, over which the client states
 are gathered) and a ``data`` group (the ranks that split one block of
 clients' batches, over which :class:`DataGroup` sums gradients, BatchNorm
-batch statistics and row counts inside the step). A single process that asks
+batch statistics and row counts inside the step, and gathers the rows that
+RSC and MixStyle mix across the batch). A single process that asks
 for more than one rank raises ``SystemExit`` naming the launch.
 """
 from __future__ import annotations
@@ -129,15 +130,49 @@ class _GroupSum(torch.autograd.Function):
         return _GroupSum.apply(x, group), in_dims[0]
 
 
+class _GroupGather(torch.autograd.Function):
+    """The rows of every rank of a data group, concatenated along ``dim`` in
+    rank order (the client's whole batch); differentiable (a rank's gradient
+    is its own rows of the gathered tensor's gradient summed over the ranks)
+    and batched under vmap (the rule gathers along the rows of the stacked
+    tensor, client by client)."""
+
+    @staticmethod
+    def forward(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+        return torch.cat(multihost.all_gather(x.detach(), group), dim=dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.group, ctx.dim = inputs
+        ctx.rows = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        total = _GroupSum.apply(g.contiguous(), ctx.group)
+        mine = dist.get_rank(ctx.group) * ctx.rows
+        return total.narrow(ctx.dim, mine, ctx.rows), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, dim):
+        if in_dims[0] is None:
+            return _GroupGather.apply(x, group, dim), None
+        return _GroupGather.apply(x.movedim(in_dims[0], 0), group, dim + 1), 0
+
+
 class DataGroup:
     """The ranks that split each client's batch: ``reduce`` sums a tensor over
-    them inside the step; ``rows(b)`` is this rank's slice of ``b`` rows."""
+    them inside the step, ``gather`` concatenates its rows (the client's
+    whole batch, for what mixes rows: RSC's batch percentile, MixStyle's
+    permutation); ``rows(b)`` is this rank's slice of ``b`` rows."""
 
     def __init__(self, group):
         self.group, self.size = group, dist.get_world_size(group)
 
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
         return _GroupSum.apply(t, self.group)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return _GroupGather.apply(t, self.group, 0)
 
     def rows(self, b: int) -> slice:
         return multihost.group_rows(b, self.group)
@@ -182,18 +217,26 @@ class GroupBatchNorm(nn.Module):
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
-def with_group_batchnorm(model: nn.Module, data: DataGroup) -> nn.Module:
-    """``model`` with every BatchNorm swapped for :class:`GroupBatchNorm`
-    (same state-dict keys; the model's own tensors are shared)."""
+def with_data_group(model: nn.Module, data: DataGroup) -> nn.Module:
+    """``model`` for a batch split over ``data``: every BatchNorm swapped for
+    :class:`GroupBatchNorm`, every MixStyle mixing with the statistics of
+    the client's whole batch (``data.gather``); same state-dict keys, the
+    model's own tensors shared."""
     import copy
+
+    from ccst_tpu_torch.models.layers import MixStyle
 
     out = copy.copy(model)
     out._modules = dict(model._modules)
     for name, child in model.named_children():
         if isinstance(child, nn.modules.batchnorm._BatchNorm):
             out._modules[name] = GroupBatchNorm(child, data)
+        elif isinstance(child, MixStyle):
+            mix = copy.copy(child)
+            mix.gather = data.gather
+            out._modules[name] = mix
         else:
-            out._modules[name] = with_group_batchnorm(child, data)
+            out._modules[name] = with_data_group(child, data)
     return out
 
 

@@ -121,6 +121,24 @@ def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
     return [o.to(t.device) for o in out]
 
 
+def exchange(sends: Dict[int, torch.Tensor], recv_like: Dict[int, torch.Tensor],
+             group=None) -> Dict[int, torch.Tensor]:
+    """Point to point: send ``sends[p]`` to group rank ``p`` and receive from
+    each group rank ``p`` of ``recv_like`` a tensor of the shape and dtype of
+    ``recv_like[p]``; returns the received tensors on their devices. Every
+    send and receive is posted before any is waited on, so no order of the
+    pairs can deadlock; CUDA tensors go through the host on gloo."""
+    peer = (lambda p: p) if group is None else (lambda p: dist.get_global_rank(group, p))
+    outgoing = {p: _staged(t.contiguous(), group) for p, t in sends.items()}
+    incoming = {p: torch.empty_like(_staged(t, group), memory_format=torch.contiguous_format)
+                for p, t in recv_like.items()}
+    works = [dist.isend(t, peer(p), group=group) for p, t in outgoing.items()]
+    works += [dist.irecv(t, peer(p), group=group) for p, t in incoming.items()]
+    for w in works:
+        w.wait()
+    return {p: t.to(recv_like[p].device) for p, t in incoming.items()}
+
+
 def _flat_groups(tree: Tree) -> Dict[torch.dtype, List[str]]:
     groups: Dict[torch.dtype, List[str]] = {}
     for k, v in tree.items():

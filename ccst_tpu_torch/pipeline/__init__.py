@@ -1,1 +1,2 @@
-"""Offline stylization pipeline: style banks and cross-client transfer."""
+"""Offline stylization pipeline (style banks, cross-client transfer), decoder
+training and the paper-repro driver."""

@@ -1,1 +1,1 @@
-"""Metrics logging, checkpoints and profiling of the training stage."""
+"""Metrics logging, checkpoints, profiling, SWA, plots and round exports."""

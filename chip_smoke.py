@@ -153,6 +153,26 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      each rank's K3 launches (18 a step), then one step over the two ranks on
      phase 8's batch, bit-equal on both and within phase 8's rule of its
      float64 step. A ``parallel`` JSON line reports them.
+ 10. the sharded paths (``parallel/spatial.py``, ``parallel/tensor.py``),
+     after phase 6, on phase 4's images, banks and calibration: (c) K4's
+     given-statistics entry against its plain version at relu4_1 of a 512 px
+     batch with the three banks (bf16 rtol = atol = 1e-2, float32 1e-5),
+     its device time from a replayed CUDA graph beside its byte bound; then
+     four ranks of this script's ``--rank-worker shard`` on the one card
+     (gloo, collectives through the host), every launch count zeroed before
+     each call and read after it on every rank: (a) the row-sharded stylize
+     over the four ranks, ``ref`` in bf16 and float32 and ``int8-static``,
+     one call a bank, each against the single-rank engine on the same images
+     and bank (bf16 and int8 MAE <= 1e-3, float32 rtol 1e-4 atol 1e-5), the
+     same bits gathered on every rank, the relu4_1 features beside the single
+     rank's (int8: bit for bit, the halo check), exactly 18 K3 / K0, one K5
+     an image and one given-statistics K4 a call on every rank; (b) the
+     batch-sharded int8-static stylize (an image a rank) bit for bit, 18 K0
+     and one K4 a call; (d) ResNet-50 at ``FedConfig``'s widths over a
+     (data 2, model 2) mesh, eval mode, float32 with TF32 off, a batch of 8
+     at 222 px, against the unsharded float32 step (loss rtol 2e-5, logits
+     atol 2e-4) and every gradient leaf by phase 7's rule against the
+     float64 step. A ``sharding`` JSON line reports them with their seconds.
 
 The random decoder's last conv is rescaled (x12, bias +0.5) so that stylized
 outputs spread over [0, 1] as real ones do: the MAE bar is then 0.1% of the
@@ -165,10 +185,11 @@ runs the same phases on a larger synthetic tree and batch, for the device
 rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
 Before the last two lines come the ``fed`` JSON line of phase 7 (with F3's
-``step_bits``), the ``privacy`` line of phase 8 and the ``parallel`` line of
-phase 9. The line
-before the last is a JSON object with one entry per kernel, whose
-``launches`` are the counts of the main paths of phases 4, 8 and 9 (K2 decodes ``int8-fused``:
+``step_bits``), the ``privacy`` line of phase 8, the ``parallel`` line of
+phase 9 and the ``sharding`` line of phase 10. The line
+before the last is a JSON object with one entry per kernel (K4's
+given-statistics entry its own, ``fused_adain_given``), whose
+``launches`` are the counts of the main paths of phases 4, 8, 9 and 10 (K2 decodes ``int8-fused``:
 on this card it is faster than the two K0 launches it replaces,
 ``replaces_chain_ms``) and,
 for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
@@ -2113,6 +2134,346 @@ def rank_worker(args):
     return 0
 
 
+# -- row-sharded stylize and the channel-split ResNet-50 (phase 10) ------------
+
+SHARD_WORLD = 4                 # ranks on the one card: (a), (b) a spatial group, (d) a 2 x 2 mesh
+SHARD_F32_TOL = dict(rtol=1e-4, atol=1e-5)   # ccst_tpu's tests/test_parallel.py bar
+SHARD_ROUTES = ("ref bf16", "ref float32", "int8-static")
+GIVEN_STYLES = 3                # (c): K4's given-statistics entry with all of phase 4's banks
+TP_BATCH, TP_MIN_DIM = 8, 128   # (d): the global batch (4 rows a data rank); ccst_tpu's policy
+TP_LOSS_RTOL, TP_LOGITS_ATOL = 2e-5, 2e-4    # ccst_tpu's tests/test_parallel.py bars
+
+
+def check_given_adain(torch, dev, gen, results, batch):
+    """(c): K4's given-statistics entry against its plain version at relu4_1
+    of a 512 px batch with all three banks (bf16 and float32), timed on the
+    device from a replayed CUDA graph beside its byte bound, the host's call
+    rate and the plain version's time; no one PyTorch call computes it."""
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
+    from ccst_tpu_torch.kernels.adain import fused_adain_given, fused_adain_multi_reference
+
+    shape = relu4_1_shape(batch)
+    for dtype in (torch.bfloat16, torch.float32):
+        feat = (torch.randn(shape, generator=gen) * 2 + 1).to(dev, dtype)
+        x = feat.float()
+        mean = x.mean(dim=(1, 2))
+        var = torch.square(x - mean[:, None, None]).sum(dim=(1, 2)) / (shape[1] * shape[2] - 1)
+        inv_std = torch.rsqrt(var + 1e-5)
+        s_means = torch.randn((GIVEN_STYLES, shape[-1]), generator=gen).to(dev)
+        s_stds = (torch.rand((GIVEN_STYLES, shape[-1]), generator=gen) + 0.1).to(dev)
+        for alpha in (1.0, 0.6):
+            kernel = lambda: fused_adain_given(feat, mean, inv_std, s_means, s_stds, alpha)
+            plain = lambda: fused_adain_multi_reference(feat, s_means, s_stds, alpha, mean=mean,
+                                                        inv_std=inv_std)
+            got = kernel()
+            torch.cuda.synchronize()
+            label = f"{shape} {dtype} alpha={alpha} S={GIVEN_STYLES}"
+            mx, mae = check_close(f"K4 given {label}", got, plain(),
+                                  **(BF16_TOL if dtype == torch.bfloat16 else F32_TOL))
+            ms = graph_ms(torch, kernel, 50, 5)["median"]
+            call_ms = time_ms(torch, kernel, reps=50)
+            plain_ms = time_ms(torch, plain, reps=5, runs=3)
+            # the features in once, S outputs out, the (N, C) statistics and (S, C) banks in
+            nbytes = ((1 + GIVEN_STYLES) * feat.numel() * feat.element_size()
+                      + 8 * shape[0] * shape[-1] + 8 * GIVEN_STYLES * shape[-1])
+            bd = bound((4 + 6 * GIVEN_STYLES) * feat.numel(), F32_PEAK_TFLOPS, nbytes)
+            results["K4-given"].append(dict(
+                shape=list(shape), dtype=str(dtype), alpha=alpha, styles=GIVEN_STYLES,
+                max_abs_err=mx, mean_abs_err=mae, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=None, **bd))
+            print(f"K4 given statistics {label}: max {mx:.3e} mean {mae:.3e} | kernel {ms:.4f} ms "
+                  f"on the device, {call_ms:.4f} ms a call; bound {bd['bound_ms']:.4f} ms by "
+                  f"{bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% reached) plain "
+                  f"{plain_ms:.4f} ms")
+        del feat, got
+
+
+def shard_counters():
+    """The launch counters of the kernels the sharded paths may launch."""
+    from ccst_tpu_torch.kernels.adain import fused_adain_given, fused_adain_multi
+    from ccst_tpu_torch.kernels.conv import reflect_conv3x3
+    from ccst_tpu_torch.kernels.level1 import decoder_level1, encoder_level1
+    from ccst_tpu_torch.kernels.moments import channel_moments
+    from ccst_tpu_torch.kernels.qconv import qconv3x3_s8
+
+    return {"K3": reflect_conv3x3, "K0": qconv3x3_s8, "K5": channel_moments,
+            "K4": fused_adain_multi, "K4-given": fused_adain_given, "K1": encoder_level1,
+            "K2": decoder_level1}
+
+
+def expected_shard_launches(route, images):
+    """One sharded call's launches on each rank: 18 convs, a K5 an image of
+    the rank's rows and one given-statistics K4; the batch variant runs the
+    single-rank path on its images (18 K0, one K4)."""
+    out = {k: 0 for k in shard_counters()}
+    if route == "batch int8-static":
+        out.update(K0=18, K4=1)
+    else:
+        out.update({"K3" if route.startswith("ref") else "K0": 18, "K5": images, "K4-given": 1})
+    return out
+
+
+def shard_worker(args):
+    """One rank of phase 10, started by ``run_sharding_phase``: (a) each route
+    of ``parallel/spatial.py`` over the SHARD_WORLD ranks for each bank, every
+    launch count zeroed before a call and read after it, the output and the
+    relu4_1 features gathered; (b) the batch variant; (d) ResNet-50 over a
+    (data 2, model 2) mesh, the loss, the logits and the gradients of one
+    batch gathered whole. Saves them, with a digest of each gathered tensor."""
+    import hashlib
+
+    import torch
+
+    from ccst_tpu_torch.federated.train_ops import cross_entropy
+    from ccst_tpu_torch.models import vgg, vgg_fast
+    from ccst_tpu_torch.models.classifiers import get_network
+    from ccst_tpu_torch.models.convert import load_decoder, load_encoder
+    from ccst_tpu_torch.parallel import multihost, spatial, tensor
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    dev = multihost.initialize(args.init, args.world, args.rank, device="cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(os.path.join(args.work_dir, "inputs.pt"), weights_only=False)
+    enc, dec = load_encoder(inp["enc_path"]), load_decoder(inp["dec_path"])
+    counters = shard_counters()
+    group = spatial.make_spatial_mesh(args.world)
+    images, s_means, s_stds = inp["images"], inp["s_means"], inp["s_stds"]
+    n_img = images.shape[0]
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
+
+    def digest(t):
+        return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
+
+    enc_w, dec_w = (vgg_fast.cast_params(p, torch.bfloat16) for p in (enc, dec))
+    eq = vgg_fast.prepare_encoder_q8s(enc_w, inp["scales"], torch.bfloat16, dev)
+    dq = vgg_fast.prepare_decoder_q8s(dec_w, inp["scales"], torch.bfloat16, dev)
+    out = {"routes": {}}
+    for route in SHARD_ROUTES:
+        if route == "int8-static":
+            run = spatial.make_spatial_stylize_q8s(group, eq, dq, torch.bfloat16)
+            call = lambda m, s: run(images, m, s)
+            encode = lambda: run.encode(images)
+        else:
+            dtype = torch.float32 if route.endswith("float32") else torch.bfloat16
+            run = spatial.make_spatial_stylize(group, dtype, dev)
+            ep, dp = vgg.prepare_params(enc, dtype, dev), vgg.prepare_params(dec, dtype, dev)
+            call = lambda m, s: run(ep, dp, images, m, s)
+            encode = lambda: run.encode(ep, images)
+        outs, counts, seconds = [], [], []
+        for m, s in zip(s_means, s_stds):
+            y, c, t = counted(lambda: call(m, s))
+            outs.append(spatial.gather_rows(y, group))
+            counts.append(c)
+            seconds.append(t)
+        feat = spatial.gather_rows(encode(), group)
+        out["routes"][route] = {"counts": counts, "seconds": seconds,
+                                "digests": [digest(o) for o in outs + [feat]],
+                                **({"outputs": torch.stack(outs).cpu(), "feat": feat.cpu()}
+                                   if args.rank == 0 else {})}
+    run = spatial.make_batch_stylize_q8s(group, eq, dq, torch.bfloat16)
+    outs, counts, seconds = [], [], []
+    for m, s in zip(s_means, s_stds):
+        y, c, t = counted(lambda: run(images, m, s))
+        outs.append(spatial.gather_rows(y, group, dim=0))
+        counts.append(c)
+        seconds.append(t)
+    out["routes"]["batch int8-static"] = {
+        "counts": counts, "seconds": seconds, "digests": [digest(o) for o in outs],
+        **({"outputs": torch.stack(outs).cpu()} if args.rank == 0 else {})}
+
+    # (d) the channel-split ResNet-50, eval mode as ccst_tpu's test
+    model = get_network(FED_NET, FED_CLASSES)
+    model.load_state_dict(inp["tp_state"])
+    model.to(dev).eval()
+    mesh = tensor.make_dp_tp_mesh(2, 2)
+    tp = tensor.with_tensor_parallel(model, mesh, TP_MIN_DIM)
+    batch = tensor.shard_batch({"x": inp["tp_x"], "labels": inp["tp_labels"]}, mesh)
+    names, params = zip(*tp.named_parameters())
+    with no_tf32(deterministic=True):
+        t0 = time.perf_counter()
+        logits = tp(batch["x"].to(dev).permute(0, 3, 1, 2))
+        loss = cross_entropy(logits, batch["labels"].to(dev)).mean()
+        grads = tensor.data_mean(torch.autograd.grad(loss, params), mesh)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    full = {k: v for k, v in model.state_dict().items()}
+    grads = tensor.unshard_params(dict(zip(names, grads)), full, mesh, TP_MIN_DIM)
+    out["tp"] = {"loss": float(tensor.data_mean([loss.detach()], mesh)[0]), "seconds": step_s,
+                 "split": sorted(k for k, v in tp.state_dict().items() if v.shape != full[k].shape),
+                 "digest": digest(torch.cat([g.reshape(-1) for g in grads.values()]))}
+    if args.rank == 0:
+        out["tp"].update(logits=torch.cat(multihost.all_gather(logits.detach(), mesh.data_group)
+                                          ).cpu(),
+                         grads={k: g.double().cpu() for k, g in grads.items()})
+    else:
+        multihost.all_gather(logits.detach(), mesh.data_group)
+    torch.save(out, os.path.join(args.work_dir, f"rank{args.rank}.pt"))
+    print(f"rank {args.rank}: sharded stylize and the (data 2, model 2) ResNet-50 step done, "
+          f"{len(out['tp']['split'])} leaves split", flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def run_sharding_phase(torch, dev, smi, enc, dec, scales, images_u8, s_means, s_stds, singles,
+                       results):
+    """Phase 10: (c) K4's given-statistics entry; then SHARD_WORLD ranks of
+    ``shard_worker`` on the one card (gloo, collectives through the host):
+    (a) the sharded stylize routes against the single-rank engines
+    ``singles`` on the same images and banks, with each rank's launch counts;
+    (b) the batch variant bit for bit; (d) the (data 2, model 2) ResNet-50
+    against the unsharded float32 and float64 steps on the card. Returns the
+    ``sharding`` line and the launches of the sharded paths by kernel."""
+    import copy
+
+    from ccst_tpu_torch.federated.train_ops import cross_entropy
+    from ccst_tpu_torch.models import convert
+    from ccst_tpu_torch.models.classifiers import get_network, init_weights
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    t_phase = time.perf_counter()
+    n_img = images_u8.shape[0]
+    check_given_adain(torch, dev, torch.Generator().manual_seed(10), results, n_img)
+    model = init_weights(get_network(FED_NET, FED_CLASSES), torch.Generator().manual_seed(11))
+    gen = torch.Generator().manual_seed(12)
+    tp_x = torch.rand((TP_BATCH, FED_SIZE, FED_SIZE, 3), generator=gen)
+    tp_labels = torch.randint(0, FED_CLASSES, (TP_BATCH,), generator=gen)
+    with tempfile.TemporaryDirectory(prefix="ccst_shard_") as work:
+        enc_path, dec_path = os.path.join(work, "vgg.npz"), os.path.join(work, "decoder.npz")
+        convert.save_npz(enc_path, enc)
+        convert.save_npz(dec_path, dec)
+        torch.save({"enc_path": enc_path, "dec_path": dec_path, "scales": scales,
+                    "images": images_u8.cpu(), "s_means": s_means.cpu(), "s_stds": s_stds.cpu(),
+                    "tp_state": model.state_dict(), "tp_x": tp_x, "tp_labels": tp_labels},
+                   os.path.join(work, "inputs.pt"))
+        init = f"tcp://127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                                   "--rank-worker", "shard", "--rank", str(r), "--world",
+                                   str(SHARD_WORLD), "--init", init, "--work-dir", work],
+                                  cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for r in range(SHARD_WORLD)]
+        outs = wait_all(procs, "phase 10", timeout=600)
+        ranks_seconds = time.perf_counter() - t0
+        for out, _ in outs:
+            print("\n".join(l for l in out.splitlines() if l.startswith(("[multihost]", "rank "))))
+        res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+               for r in range(SHARD_WORLD)]
+
+    failures, routes, launches = [], {}, {k: 0 for k in shard_counters()}
+    bars = {"ref bf16": ("mae", MAE_BAR), "ref float32": ("close", SHARD_F32_TOL),
+            "int8-static": ("mae", MAE_BAR), "batch int8-static": ("equal", None)}
+    for route, (kind, bar) in bars.items():
+        got = res[0]["routes"][route]
+        if any(r["routes"][route]["digests"] != got["digests"] for r in res[1:]):
+            failures.append(f"{route}: the ranks gathered other bits")
+        images_a_rank = n_img // SHARD_WORLD if route.startswith("batch") else n_img
+        expect = expected_shard_launches(route, images_a_rank)
+        for r, rank_res in enumerate(res):
+            for c in rank_res["routes"][route]["counts"]:
+                if c != expect:
+                    failures.append(f"{route}: rank {r} launched {c}, expected {expect}")
+                for k, v in c.items():
+                    launches[k] += v
+        engine = singles["int8-static" if "int8" in route else route]
+        with torch.no_grad():
+            want = torch.stack([engine.stylize(images_u8, m, s, 1.0) for m, s in
+                                zip(s_means, s_stds)]).cpu()
+        err = (got["outputs"] - want).abs()
+        row = {"mae": err.mean().item(), "max_abs_err": err.max().item(),
+               "seconds_a_call": max(sorted(r["routes"][route]["seconds"])[len(s_means) // 2]
+                                     for r in res),
+               "first_call_seconds": max(r["routes"][route]["seconds"][0] for r in res),
+               "launches_a_call_a_rank": expect}
+        if got["outputs"].shape != want.shape or not bool(got["outputs"].isfinite().all()):
+            failures.append(f"{route}: shape {tuple(got['outputs'].shape)} or non-finite values")
+        elif kind == "mae" and not row["mae"] <= bar:
+            failures.append(f"{route}: MAE {row['mae']:.3e} against the single rank > {bar}")
+        elif kind == "close" and not bool((err <= bar["atol"] + bar["rtol"] * want.abs()).all()):
+            failures.append(f"{route}: max abs err {row['max_abs_err']:.3e} against the single "
+                            f"rank exceeds rtol {bar['rtol']} atol {bar['atol']}")
+        elif kind == "equal" and not torch.equal(got["outputs"], want):
+            failures.append(f"{route}: not bit-equal to the single rank")
+        if "feat" in got:  # relu4_1: a difference here is a halo fault, not the statistics
+            with torch.no_grad():
+                feat = engine._encode(engine._as_input(images_u8)).cpu()
+            d = (got["feat"].float() - feat.float()).abs().max().item()
+            row.update(features_bit_equal=bool(torch.equal(got["feat"], feat)), features_max_abs=d)
+            if "int8" in route and not row["features_bit_equal"]:
+                failures.append(f"{route}: the sharded relu4_1 features differ from the single "
+                                f"rank's by {d:.3e}: the integer convs are exact, so a halo fault")
+            elif not d <= 1e-2 * max(feat.float().abs().max().item(), 1.0):
+                failures.append(f"{route}: the sharded relu4_1 features are {d:.3e} off")
+        routes[route] = row
+        print(f"{route} over {SHARD_WORLD} ranks ({n_img} x {images_u8.shape[1]}px, "
+              f"{len(s_means)} banks): "
+              f"MAE {row['mae']:.3e} max {row['max_abs_err']:.3e} against the single rank; "
+              + (f"relu4_1 bit-equal {row['features_bit_equal']} (max {row['features_max_abs']:.3e}); "
+                 if "feat" in got else "")
+              + f"launches a call on every rank {expect}; {row['seconds_a_call']:.3f} s a call "
+              f"(first {row['first_call_seconds']:.3f} s)")
+
+    # (d) against the unsharded step on the card, float32 and float64
+    tp = res[0]["tp"]
+    x = tp_x.to(dev).permute(0, 3, 1, 2)
+    ref = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        m = copy.deepcopy(model).to(dev, dtype).eval()
+        with no_tf32(deterministic=True):
+            t0 = time.perf_counter()
+            logits = m(x.to(dtype))
+            loss = cross_entropy(logits, tp_labels.to(dev)).mean()
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            ref[name] = (loss.item(), logits.detach().double().cpu(),
+                         {k: g.double().cpu() for k, g in zip(names, grads)},
+                         time.perf_counter() - t0)
+    (l32, lg32, g32, s32), (l64, lg64, g64, _) = ref["float32"], ref["float64"]
+    if any(r["tp"]["digest"] != tp["digest"] for r in res[1:]):
+        failures.append("tensor parallel: the ranks hold other gradient bits")
+    if abs(tp["loss"] - l32) > TP_LOSS_RTOL * abs(l32):
+        failures.append(f"tensor parallel: loss {tp['loss']} against {l32} unsharded")
+    logit_err = (tp["logits"].double() - lg32).abs().max().item()
+    if not logit_err <= TP_LOGITS_ATOL:
+        failures.append(f"tensor parallel: logits {logit_err:.3e} off the unsharded > "
+                        f"{TP_LOGITS_ATOL}")
+    zeros = {k: torch.zeros_like(g) for k, g in g64.items()}
+    bad, errs = median_rule("tensor parallel", zeros, tp["grads"], g32, g64, FED_DELTA_MEDIAN,
+                            FED_F32_FACTOR)
+    failures += bad
+    worst = max((e, k, e32) for k, (e, e32) in errs.items())
+    print(f"ResNet-50 over (data 2, model 2) ({TP_BATCH} x {FED_SIZE}px, float32, TF32 off, eval "
+          f"mode): {len(tp['split'])} of {len(g64)} leaves split; loss {tp['loss']:.6f} "
+          f"(unsharded {l32:.6f}, float64 {l64:.6f}); logits {logit_err:.3e} off the unsharded; "
+          f"worst gradient leaf median |g - g_64| / max |g_64| {worst[0]:.2e} ({worst[1]}; the "
+          f"unsharded float32's {worst[2]:.2e}); step {tp['seconds']:.2f} s on the ranks, "
+          f"{s32:.3f} s unsharded")
+    if failures:
+        fail("\n  ".join(failures[:40]))
+    return {"card": smi, "ranks": SHARD_WORLD, "backend": "gloo (ranks share the card)",
+            "images": n_img, "image_size": images_u8.shape[1], "styles": len(s_means),
+            "routes": routes,
+            "tensor_parallel": {
+                "network": FED_NET, "mesh": {"data": 2, "model": 2}, "batch": TP_BATCH,
+                "image_size": FED_SIZE, "precision": "float32, TF32 off, cuDNN deterministic",
+                "min_dim": TP_MIN_DIM, "split_leaves": len(tp["split"]), "leaves": len(g64),
+                "loss": tp["loss"], "loss_unsharded": l32, "loss_float64": l64,
+                "logits_max_abs_err": logit_err, "worst_leaf": worst,
+                "step_seconds": tp["seconds"], "unsharded_step_seconds": s32},
+            "ranks_seconds": ranks_seconds, "phase_seconds": time.perf_counter() - t_phase,
+            "launches": launches}
+
+
 def check_step_bits(torch, dev):
     """ROADMAP F3: one ResNet-50 step (fedavg, batch 32, 222 px, TF32 off)
     twice in this process and once in another, bit for bit, with cuDNN as the
@@ -2178,8 +2539,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--images-per-domain", type=int, default=12)
     ap.add_argument("--batch-size", type=int, default=4)
-    # one rank of phase 9's (d) / (e), started by the script itself
-    ap.add_argument("--rank-worker", choices=["invert", "decoder"], help=argparse.SUPPRESS)
+    # one rank of phase 9's (d) / (e) or of phase 10, started by the script itself
+    ap.add_argument("--rank-worker", choices=["invert", "decoder", "shard"],
+                    help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--init", help=argparse.SUPPRESS)
@@ -2200,7 +2562,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     if args.rank_worker:
-        return rank_worker(args)
+        return shard_worker(args) if args.rank_worker == "shard" else rank_worker(args)
 
     from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
     from ccst_tpu_torch.kernels import _build
@@ -2247,7 +2609,7 @@ def main() -> int:
 
     # -- 3. kernels vs plain versions --------------------------------------
     gen = torch.Generator().manual_seed(0)
-    results = {k: [] for k in ("K3", "K4", "K5", "K0", "K1", "K2", "B1", "B2-direct",
+    results = {k: [] for k in ("K3", "K4", "K4-given", "K5", "K0", "K1", "K2", "B1", "B2-direct",
                                "B2-wino", "B3")}
 
     for layer, (n, h, w, cin, cout) in K3_SHAPES:
@@ -2894,20 +3256,34 @@ def main() -> int:
     for k, v in run_harnesses(torch, counters).items():
         launches[k] = v
 
+    # -- 10. the row-sharded stylize and the channel-split ResNet-50 --------
+    sharding = run_sharding_phase(
+        torch, dev, smi, enc, dec, scales, images_u8, s_means, s_stds,
+        {"ref bf16": engine, "ref float32": engine32, "int8-static": engines["int8-static"]},
+        results)
+    for k, v in sharding["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
                "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN),
                "stylize ref, packed; train-decoder, invert-train, invert-eval, gan-train "
                "--fid-samples (grad-free passes); invert-train on 2 ranks, train-decoder on "
-               "a 2-rank mesh (each rank)"),
+               "a 2-rank mesh (each rank); the row-sharded stylize ref (each rank)"),
         "K4": ("fused_adain_multi", "cuda", "ccst_tpu_torch/csrc/adain.cu",
                "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
-               "stylize (every engine, both modes)"),
+               "stylize (every engine, both modes); the batch-sharded int8-static stylize "
+               "(each rank)"),
+        "K4-given": ("fused_adain_given", "cuda", "ccst_tpu_torch/csrc/adain.cu",
+                     "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
+                     "the row-sharded stylize, ref and int8-static (each rank)"),
         "K5": ("channel_moments", "cuda", "ccst_tpu_torch/csrc/moments.cu",
                "ccst_tpu/kernels/welford_pallas.py:52", list(relu4_1_shape(batch)),
-               "style-bank, stylize --mode single"),
+               "style-bank, stylize --mode single; the row-sharded stylize (each rank)"),
         "K0": ("qconv3x3_s8", "cuda", "ccst_tpu_torch/csrc/qconv3x3_s8.cu",
-               "ccst_tpu/models/vgg_fast.py:381", list(K0_MAIN), "stylize int8-fused, int8"),
+               "ccst_tpu/models/vgg_fast.py:381", list(K0_MAIN),
+               "stylize int8-fused, int8; the row- and batch-sharded int8-static stylize "
+               "(each rank)"),
         "K1": ("encoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
                "ccst_tpu/kernels/level1_pallas.py:367", [4, 256, 256, 12], "stylize int8-fused"),
         "K2": ("decoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
@@ -2965,6 +3341,7 @@ def main() -> int:
     print(json.dumps({"fed": fed}))
     print(json.dumps({"privacy": privacy}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"sharding": sharding}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -193,11 +193,13 @@ def test_cli_launch_and_its_rules(tree, tmp_path):
         torch_cli(["fed-train", "--mode", "deepall", "--num-procs", "2", "--device", "cpu"])
 
 
-def _data_shards_against_jax(tmp_path, monkeypatch, per_domain, steps, data_shards, **kw):
+def _data_shards_against_jax(tmp_path, monkeypatch, per_domain, steps, data_shards,
+                             rank_args=None, **kw):
     """One round of ``steps`` batches of 8 a client from the same state: two
     ranks of the port splitting each batch, and ccst_tpu's parallel runner
-    over a (client 1, data ``data_shards``) mesh. Returns (start, the ranks'
-    server, ccst_tpu's server), all in the port's names."""
+    over a (client 1, data ``data_shards``) mesh. ``rank_args`` go to the
+    ranks' worker only. Returns (start, the ranks' server, ccst_tpu's
+    server), all in the port's names."""
     root = _tree(str(tmp_path / "tree"), (per_domain,) * 4)
     monkeypatch.setattr(jops, "train_transform",
                         lambda key, images, size, *a, **k: jimg.eval_transform(images, size))
@@ -211,7 +213,7 @@ def _data_shards_against_jax(tmp_path, monkeypatch, per_domain, steps, data_shar
     jr.run_round(0)
     out = str(tmp_path / "mh")
     targs = dict(args, save_path=os.path.join(out, "ckpt"), log_path=os.path.join(out, "logs"),
-                 data_shards=2, start=str(tmp_path / "start.pt"))
+                 data_shards=2, start=str(tmp_path / "start.pt"), **(rank_args or {}))
     ranks = _ranks("fed", 2, out, targs)
     assert _same(ranks[0]["server"], ranks[1]["server"])
     for k, v in ranks[0]["server"].items():

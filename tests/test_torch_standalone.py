@@ -1,8 +1,9 @@
 """ccst_tpu_torch stands alone: it imports nothing of ccst_tpu and nothing of
 JAX (nor flax, optax, triton or msgpack), and its own copies of the
 framework-free modules (config with ``MeshConfig``, data.lists, data.loader,
-data.digits, native, federated.data, pipeline.amp_bank, utils.metrics, the
-Jigsaw permutation asset) behave as the originals do. The worker that the
+data.digits, native, federated.data, pipeline.amp_bank, utils.metrics,
+utils.plotting, utils.excel_log, ``StageTimer``, the Jigsaw permutation
+asset) behave as the originals do. The worker that the
 multi-process tests spawn (``tests/torch_multihost_worker.py``) is walked
 with the package.
 
@@ -70,6 +71,9 @@ def test_port_has_sources_to_walk():
             "ccst_tpu_torch/utils/checkpoint.py", "ccst_tpu_torch/models/classifiers.py",
             "ccst_tpu_torch/parallel/fed_mesh.py", "ccst_tpu_torch/parallel/multihost.py",
             "ccst_tpu_torch/federated/multihost_runtime.py", "ccst_tpu_torch/data/digits.py",
+            "ccst_tpu_torch/parallel/spatial.py", "ccst_tpu_torch/parallel/tensor.py",
+            "ccst_tpu_torch/utils/swa.py", "ccst_tpu_torch/utils/plotting.py",
+            "ccst_tpu_torch/utils/excel_log.py", "ccst_tpu_torch/pipeline/repro.py",
             "tests/torch_multihost_worker.py"} <= names
 
 
@@ -121,6 +125,36 @@ def test_mesh_config_axis_sizes_equal_original(sizes, n_devices):
             return f"ValueError: {e}"
 
     assert sizes_of(tconfig) == sizes_of(jconfig)
+
+
+# the port's copies of the report modules: the originals' text with the port's
+# imports and CLI name, and these edits of their docstrings
+_REPORT_EDITS = {
+    "plotting": [("TPU-native counterpart of the reference's", "Counterpart of the reference's")],
+    "excel_log": [("(if openpyxl is installed —\nit is not in this image, so CSV is the default "
+                   "artifact).", "(if openpyxl is installed; CSV\notherwise).")],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_REPORT_EDITS))
+def test_report_modules_equal_originals(name):
+    with open(os.path.join(REPO, "ccst_tpu", "utils", f"{name}.py")) as f:
+        theirs = f.read().replace("from ccst_tpu.", "from ccst_tpu_torch.").replace(
+            "``ccst-tpu ", "``ccst-tpu-torch ")
+    for old, new in _REPORT_EDITS[name]:
+        assert old in theirs
+        theirs = theirs.replace(old, new)
+    with open(os.path.join(REPO, "ccst_tpu_torch", "utils", f"{name}.py")) as f:
+        assert f.read() == theirs
+
+
+def test_stage_timer_equals_original():
+    import inspect
+
+    import ccst_tpu.utils.profiling as jprof
+    import ccst_tpu_torch.utils.profiling as tprof
+
+    assert inspect.getsource(tprof.StageTimer) == inspect.getsource(jprof.StageTimer)
 
 
 def test_digits_module_equals_original(tmp_path):

@@ -10,14 +10,23 @@ the parent compares to ``OUT_DIR/rank{RANK}.pt``. Imports the port only
 Cases:
   fed      ``MultihostFedRunner(FedConfig(**args)).run()``; with
            ``args["start"]`` (a state-dict file) every client starts there and
-           the random train transform is the eval transform;
+           the random train transform is the eval transform; with
+           ``args["mix_draws"]`` (gate, lambda, permutation a MixStyle stage)
+           MixStyle takes those draws, stage after stage;
   welford  ``welford_psum`` of this rank's seeded NHWC chunk;
   decoder  ``train_decoder(..., mesh=WORLD)``, then one ``DecoderTrainer``
            step and one ``adain_train_step(..., group=WORLD)`` on this
            rank's rows of a seeded batch;
   inverter ``train_inverter(..., mesh=WORLD)`` (from ``args["init"]``'s
            parameters when given), then one ``InverterTrainer`` step on this
-           rank's rows of a seeded batch.
+           rank's rows of a seeded batch;
+  spatial  (4 ranks) ``parallel/spatial.py``: the float32 ``ref`` stylize
+           over the world, the int8-static one over ranks 0 and 1, the batch
+           int8-static one over the world, each output gathered; on ranks 0
+           and 1 ``whole_plane_stats`` of each rank's half of a feature plane;
+  tensor   (4 ranks) ``parallel/tensor.py``: ``args["network"]`` over a
+           (data 2, model 2) mesh, eval mode: the loss, the logits and the
+           gradients of one batch, gathered whole.
 """
 import json
 import os
@@ -38,6 +47,18 @@ def run_fed(args, out):
     from ccst_tpu_torch.ops.image import eval_transform
 
     start = args.pop("start", "")
+    mix = args.pop("mix_draws", None)
+    if mix:
+        from ccst_tpu_torch.models.layers import MixStyle
+
+        calls = []
+
+        def draw(self, generator, b):
+            gate, lmda, perm = mix[len(calls) % len(mix)]
+            calls.append(b)
+            return gate, np.asarray(lmda, np.float32), torch.as_tensor(perm)
+
+        MixStyle.draw = draw
     if start:
         tops.train_transform = lambda draws, images, size, *a, **k: eval_transform(images, size)
     runner = MultihostFedRunner(FedConfig(**args), device="cpu")
@@ -118,6 +139,61 @@ def run_inverter(args, out, rank):
             "params": {k: v.clone() for k, v in trainer.model.state_dict().items()}}
 
 
+def run_spatial(args, out, rank):
+    import torch.distributed as dist
+
+    from ccst_tpu_torch.models import vgg_fast
+    from ccst_tpu_torch.models.convert import load_decoder, load_encoder
+    from ccst_tpu_torch.parallel import spatial
+
+    inp = {k: torch.from_numpy(v) for k, v in np.load(args["inputs"]).items()}
+    enc, dec = load_encoder(args["enc"]), load_decoder(args["dec"])
+    world = spatial.make_spatial_mesh(4)
+    run = spatial.make_spatial_stylize(world, torch.float32, "cpu")
+    result = {"f32": spatial.gather_rows(
+        run(enc, dec, inp["images"], inp["s_mean"], inp["s_std"], 1.0), world)}
+    eq = vgg_fast.prepare_encoder_q8s(vgg_fast.cast_params(enc, torch.float32), args["scales"],
+                                      torch.bfloat16, "cpu")
+    dq = vgg_fast.prepare_decoder_q8s(vgg_fast.cast_params(dec, torch.float32), args["scales"],
+                                      torch.bfloat16, "cpu")
+    pair = dist.new_group([0, 1])  # every rank of the world creates it
+    if rank < 2:
+        pair = spatial.make_spatial_mesh(2, pair)
+        q8 = spatial.make_spatial_stylize_q8s(pair, eq, dq)
+        result["q8"] = spatial.gather_rows(q8(inp["images8"], inp["s8_mean"], inp["s8_std"]),
+                                           pair)
+        half = inp["plane"].shape[1] // 2
+        result["stats"] = spatial.whole_plane_stats(
+            inp["plane"][:, rank * half:(rank + 1) * half].contiguous(), pair)
+    batch = spatial.make_batch_stylize_q8s(world, eq, dq)
+    result["batch"] = spatial.gather_rows(batch(inp["batch"], inp["s8_mean"], inp["s8_std"]),
+                                          world, dim=0)
+    return result
+
+
+def run_tensor(args, out, rank):
+    from ccst_tpu_torch.federated.train_ops import cross_entropy
+    from ccst_tpu_torch.models.classifiers import get_network
+    from ccst_tpu_torch.parallel import multihost, tensor
+
+    inp = torch.load(args["inputs"])
+    model = get_network(args["network"], args["classes"])
+    model.load_state_dict(inp["state"])
+    model.eval()
+    mesh = tensor.make_dp_tp_mesh(2, 2)
+    tp = tensor.with_tensor_parallel(model, mesh, args["min_dim"])
+    batch = tensor.shard_batch({"x": inp["x"], "labels": inp["labels"]}, mesh)
+    logits = tp(batch["x"].permute(0, 3, 1, 2))
+    loss = cross_entropy(logits, batch["labels"]).mean()
+    names, params = zip(*tp.named_parameters())
+    grads = tensor.data_mean(torch.autograd.grad(loss, params), mesh)
+    full = dict(model.state_dict())
+    return {"loss": float(tensor.data_mean([loss.detach()], mesh)[0]),
+            "logits": torch.cat(multihost.all_gather(logits.detach(), mesh.data_group)),
+            "grads": tensor.unshard_params(dict(zip(names, grads)), full, mesh, args["min_dim"]),
+            "split": sorted(k for k, v in tp.state_dict().items() if v.shape != full[k].shape)}
+
+
 def main() -> None:
     case, init, world, rank, out = sys.argv[1:6]
     args = json.loads(sys.argv[6]) if len(sys.argv) > 6 else {}
@@ -134,6 +210,10 @@ def main() -> None:
         result = run_decoder(args, out, rank)
     elif case == "inverter":
         result = run_inverter(args, out, rank)
+    elif case == "spatial":
+        result = run_spatial(args, out, rank)
+    elif case == "tensor":
+        result = run_tensor(args, out, rank)
     else:
         raise SystemExit(f"unknown case {case!r}")
     torch.save(result, os.path.join(out, f"rank{rank}.pt"))
