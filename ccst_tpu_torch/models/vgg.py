@@ -184,12 +184,25 @@ def params_from_trainable(trainable: Trainable) -> Params:
             for name, p in trainable.items()}
 
 
+def _reflect_pad1(y: torch.Tensor) -> torch.Tensor:
+    """``F.pad(y, (1, 1, 1, 1), mode="reflect")`` of an NCHW tensor; where
+    cuDNN is asked for deterministic algorithms, as slices and concatenations:
+    the same values, and a backward without the atomic adds of the reflection
+    pad's CUDA backward, so that a training step gives the same bits run to
+    run. Elsewhere ``F.pad``, which takes less time (a 256 px ``train-decoder``
+    step 93 ms against 112 ms: ``benchmarks/privacy_profile.py``)."""
+    if not torch.backends.cudnn.deterministic:
+        return F.pad(y, (1, 1, 1, 1), mode="reflect")
+    y = torch.cat([y[:, :, 1:2], y, y[:, :, -2:-1]], dim=2)
+    return torch.cat([y[:, :, :, 1:2], y, y[:, :, :, -2:-1]], dim=3)
+
+
 def _conv_autograd(x: torch.Tensor, p, ksize: int, relu: bool) -> torch.Tensor:
     """NHWC conv on the autograd route: the NHWC tensor seen as NCHW in
     channels-last memory, reflect pad 1 for a 3x3 kernel, ``F.conv2d``."""
     y = x.permute(0, 3, 1, 2)
     if ksize == 3:
-        y = F.pad(y, (1, 1, 1, 1), mode="reflect")
+        y = _reflect_pad1(y)
     y = F.conv2d(y, p["w"], p["b"])
     if relu:
         y = torch.relu(y)

@@ -22,7 +22,8 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      (``graph_ms``); K4 AdaIN for one and three style banks
      (bf16 and float32, alpha 1.0 and 0.6, the resident and the streamed
      variant, batch 32 and the 256 px map); K5 moments (bf16 and float32,
-     C = 512 and 500, batch 32; the same bits from two runs), each beside the
+     C = 512 and 500, batch 32; the same bits from two runs; ``torch.var_mean``
+     timed beside it for comparison only), each beside the
      time of an empty kernel launched the same way; K0 int8 conv at every shape of the int8 engines, K1
      fused level-1 encoder and K2 fused level-1 decoder bit for bit, K2 and
      the two K0 launches it replaces timed on the device from a replayed
@@ -173,6 +174,30 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      at 222 px, against the unsharded float32 step (loss rtol 2e-5, logits
      atol 2e-4) and every gradient leaf by phase 7's rule against the
      float64 step. A ``sharding`` JSON line reports them with their seconds.
+ 11. the end-to-end validation experiments of ``ccst_tpu_torch/experiments/``
+     at their ``--quick`` sizes on the card, in a temporary directory: the
+     semantic validation (all four arms, seed 1: LSUV + autoencoder
+     pretraining, decoder training, bf16 banks, the float32 ``ref``,
+     ``int8-static`` and Single-mode chains, ``fed-train``) and the privacy
+     finding (float32 banks, the inverter, its held-out evaluation) from the
+     port's default initial weights and from two more of its draws
+     (``initial_weights(1000)``, ``(2000)``); every stage's launches read
+     around it and held to phase 4's and phase 8's formulas at 3 styles, and
+     nothing launched outside the stages; (a) ``tests/test_privacy_leakage.py``'s
+     bars over the three draws: the median leakage gap > 2 dB (at these sizes
+     the gap depends on the draw, on the JAX side too: 2.91-8.04 dB over six
+     of its keys on the CPU) and Overall at most the mean image + 0.5 dB on
+     every draw; (b) on the chain's own 32 px images, banks and weights, the
+     float32 ``ref`` stylize against its plain composition (MAE <= 1e-4),
+     Single mode's style statistics (K3 float32 + K5 on a 4 x 4 map),
+     ``int8-static`` (MAE <= 1e-3, relu4_1 bit for bit), both outputs
+     spanning at least 0.5, the bf16 encoder of the banks against its plain
+     version (each image within 1e-2 of its largest relu4_1 value) and K5 on
+     each domain's first bank batch (8, 4, 4, 512) (mean rtol 1e-5, M2 1e-4),
+     then K3 float32 timed at every conv shape of the ``ref`` stylize beside
+     cuDNN's float32 conv, its plain version and its bound; (d) both artifacts
+     carry the JAX scripts' keys and the card. An ``experiments`` JSON line
+     reports each stage's seconds, the accuracies, the gaps and the launches.
 
 The random decoder's last conv is rescaled (x12, bias +0.5) so that stylized
 outputs spread over [0, 1] as real ones do: the MAE bar is then 0.1% of the
@@ -186,10 +211,11 @@ rates at batch 32 and a disk-to-disk rate over more than the first batches.
 
 Before the last two lines come the ``fed`` JSON line of phase 7 (with F3's
 ``step_bits``), the ``privacy`` line of phase 8, the ``parallel`` line of
-phase 9 and the ``sharding`` line of phase 10. The line
+phase 9, the ``sharding`` line of phase 10 and the ``experiments`` line of
+phase 11. The line
 before the last is a JSON object with one entry per kernel (K4's
 given-statistics entry its own, ``fused_adain_given``), whose
-``launches`` are the counts of the main paths of phases 4, 8, 9 and 10 (K2 decodes ``int8-fused``:
+``launches`` are the counts of the main paths of phases 4, 8, 9, 10 and 11 (K2 decodes ``int8-fused``:
 on this card it is faster than the two K0 launches it replaces,
 ``replaces_chain_ms``) and,
 for B1-B3, the phase-6 harnesses' counts, and whose ``bound_ms`` / ``bound_by``
@@ -276,7 +302,7 @@ K4_CASES = [
 # bank's batch of 3 (also with rows that are not 16-byte aligned) and of 32
 K5_CASES = [
     ((3, 64, 64, 512), "bfloat16"), ((3, 64, 64, 500), "bfloat16"), ((3, 64, 64, 512), "float32"),
-    ((3, 64, 64, 500), "float32"), ((32, 64, 64, 512), "bfloat16"),
+    ((3, 64, 64, 500), "float32"), ((32, 64, 64, 512), "bfloat16"), ((32, 64, 64, 512), "float32"),
 ]
 SMALL_REPS = 200  # launches a timing run of the sub-0.1 ms kernels (K4: 50 of S banks)
 # K0 at the shapes the int8 engines launch at batch 4, 512 px:
@@ -530,17 +556,23 @@ def check_small_kernels(torch, dev, gen, results, batch):
         ms = device_ms(lambda: channel_moments(feat), SMALL_REPS)
         call_ms = time_ms(torch, lambda: channel_moments(feat), reps=SMALL_REPS)
         plain = time_ms(torch, lambda: channel_moments_reference(feat), reps=20, runs=3)
+        # the one PyTorch call with K5's function (mean and M2 / count), timed
+        # like K5 from a replayed graph; for comparison only
+        library = device_ms(lambda: torch.var_mean(feat, dim=(0, 1, 2), correction=0),
+                            SMALL_REPS)
         # one read of the tensor, a few float32 operations an element
         bd = bound(6 * feat.numel(), F32_PEAK_TFLOPS, feat.numel() * feat.element_size())
         results["K5"].append(dict(shape=list(shape), dtype=str(dtype), max_abs_err=max(mx1, mx2),
                                   mean_max_abs_err=mx1, m2_max_abs_err=mx2, ms=ms, call_ms=call_ms,
-                                  plain_ms=plain, empty_launch_ms=empty_ms, **bd))
+                                  plain_ms=plain, library_ms=library, empty_launch_ms=empty_ms,
+                                  **bd))
         print(f"K5 moments {shape} {dtype}: mean max {mx1:.3e} avg {av1:.3e}, "
               f"m2 max {mx2:.3e} avg {av2:.3e}, three runs the same bits "
               f"| kernel {ms:.4f} ms on the device (CUDA graph of {SMALL_REPS} launches), "
               f"{call_ms:.4f} ms a call; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
               f"({100 * bd['bound_ms'] / ms:.1f}% reached; empty launch "
-              f"{100 * empty_ms / ms:.1f}% of it) plain {plain:.4f} ms")
+              f"{100 * empty_ms / ms:.1f}% of it) plain {plain:.4f} ms; torch.var_mean "
+              f"{library:.4f} ms ({library / ms:.2f}x the kernel)")
 
     # ragged edges, correctness only: channels off the 128-byte group, one
     # pixel (K5 only: its variance is 0 / max(1 - ddof, 1)), bf16 rows that are
@@ -2474,6 +2506,422 @@ def run_sharding_phase(torch, dev, smi, enc, dec, scales, images_u8, s_means, s_
             "launches": launches}
 
 
+# -- the end-to-end validation experiments (phase 11) ---------------------------
+
+EXP_STYLES = 3               # shapes4: every content domain is stylized under the 3 others
+# tests/test_privacy_leakage.py's bars: the leakage gap (here the median over
+# EXP_DRAWS, the seeds of the privacy run's initial_weights; 0 the default),
+# and Overall at most the mean image + the slack on every draw
+EXP_PRIVACY_GAP_DB, EXP_OVERALL_SLACK_DB = 2.0, 0.5
+EXP_DRAWS = (0, 1000, 2000)
+EXP_SEMANTIC_KEYS = {        # the JAX scripts' artifact keys (EXPERIMENT_*.json)
+    "benchmark", "seeds", "rounds", "n_train_per_domain", "per_arm", "mean_test_acc",
+    "sd_test_acc", "n_seeds_per_arm", "ccst_gain_bf16_vs_no_fusion", "int8_vs_bf16_gap",
+    "ccst_gain_single_vs_no_fusion", "per_seed_gain", "paired_orderings"}
+EXP_PRIVACY_KEYS = {"benchmark", "image_size", "n_train_per_domain", "steps", "per_source",
+                    "finding", "min_leakage_gap_db"}
+
+
+def plain_apply(params, x, arch, stop_at=""):
+    """A VGG spec walked with K3's plain version at every 3x3 conv (``params``
+    prepared for the kernel route)."""
+    from ccst_tpu_torch.kernels.conv import reflect_conv3x3_reference
+    from ccst_tpu_torch.models import vgg
+
+    for layer in arch:
+        if isinstance(layer, vgg.Conv):
+            cw = params[layer.name]
+            if layer.ksize == 3:
+                x = reflect_conv3x3_reference(x, cw.w, cw.b, layer.relu)
+            else:
+                x = vgg.conv1x1(x, cw)
+        elif isinstance(layer, vgg.Pool):
+            x = vgg.maxpool_ceil(x)
+        elif isinstance(layer, vgg.Upsample):
+            x = vgg.upsample_nearest2x(x)
+        elif isinstance(layer, vgg.Tap) and layer.name == stop_at:
+            return x
+    return x
+
+
+def experiment_launches(stage, args, kw):
+    """The kernel launches a stage of the experiments must make: phase 4's
+    formulas (a bank batch 9 K3 + 1 K5; a stylize batch ``ref`` 9 + 9 S K3 and
+    one K4 for the S banks, ``int8-static`` 9 + 9 S K0 and one K4; Single mode
+    27 K3 + 1 K5 + 1 K4 a batch and style) and phase 8's (a decoder step 18
+    K3; an inverter step 9 K3 for its style vectors, a val batch 9; an
+    evaluation batch 27, Overall 18), at the experiments' sizes."""
+    from ccst_tpu_torch.data.lists import parse_list, train_list_path
+    from ccst_tpu_torch.privacy.invert import _split_indices
+
+    def batches(cfg, domain):
+        n = len(parse_list(train_list_path(cfg.list_root, cfg.dataset, domain))[0])
+        return -(-n // cfg.batch_size)
+
+    def held_out(cfg):
+        n = len(parse_list(train_list_path(cfg.list_root, cfg.dataset, cfg.source))[0])
+        return len(_split_indices(cfg, n)[0])
+
+    cfg = args[0] if args else None
+    if stage == "make_experiment_encoder":
+        return {"K3": 9}  # the LSUV pass: conv1_1 .. conv4_1
+    if stage == "compute_style_bank":
+        nb = batches(cfg, args[1])
+        return {"K3": 9 * nb, "K5": nb}
+    if stage == "run_overall_transfer":
+        nb, conv = batches(cfg, cfg.target), "K3" if args[1].engine == "ref" else "K0"
+        return {conv: (9 + 9 * EXP_STYLES) * nb, "K4": nb}
+    if stage == "run_single_transfer":
+        n = batches(cfg, cfg.target) * EXP_STYLES
+        return {"K3": 27 * n, "K5": n, "K4": n}
+    if stage == "train_decoder":
+        return {"K3": 18 * cfg.steps}
+    if stage == "train_inverter":
+        evals = sum((i + 1) % max(50, cfg.steps // 20) == 0 or i == cfg.steps - 1
+                    for i in range(cfg.steps))
+        return {"K3": 9 * cfg.steps + 9 * -(-held_out(cfg) // cfg.batch_size) * evals}
+    if stage == "evaluate_inverter":
+        nb = -(-min(cfg.eval_limit, held_out(cfg)) // cfg.batch_size)
+        return {"K3": (18 if kw.get("overall") else 27) * nb}
+    return {}  # pretraining, calibration, federated training: no TPU kernel
+
+
+def spread_of(tag, out):
+    """The span of a stylized output; fails below MIN_SPREAD, where an MAE bar
+    would say little."""
+    span = (out.max() - out.min()).item()
+    if not span >= MIN_SPREAD:
+        fail(f"phase 11 {tag}: outputs span {span:.3f} < {MIN_SPREAD}: the MAE bar would say "
+             "little")
+    return span
+
+
+def time_k3_layers(torch, engine, x, mean, std):
+    """K3 float32 at every distinct conv shape of the ``ref`` stylize of ``x``
+    under one style (the encoder to relu4_1, then the decoder of its AdaIN
+    output), on the layer's own input and weights: the kernel, cuDNN's float32
+    conv (TF32 off) and K3's plain version, each from a replayed CUDA graph,
+    beside the bound and the launches a stylize batch of EXP_STYLES styles."""
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
+    from ccst_tpu_torch.kernels.adain import fused_adain_reference
+    from ccst_tpu_torch.kernels.conv import reflect_conv3x3, reflect_conv3x3_reference
+    from ccst_tpu_torch.models import vgg
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    layers = {}  # shape -> (names, input, weights, relu, launches a batch)
+
+    def walk(params, h, arch, styles, stop_at=""):
+        for layer in arch:
+            if isinstance(layer, vgg.Conv):
+                cw = params[layer.name]
+                if layer.ksize == 3:
+                    shape = (*h.shape, cw.w.shape[-1])
+                    names, _, _, _, n = layers.get(shape, ([], h, cw, layer.relu, 0))
+                    layers[shape] = ([*names, layer.name], h, cw, layer.relu, n + styles)
+                    h = reflect_conv3x3_reference(h, cw.w, cw.b, layer.relu)
+                else:
+                    h = vgg.conv1x1(h, cw)
+            elif isinstance(layer, vgg.Pool):
+                h = vgg.maxpool_ceil(h)
+            elif isinstance(layer, vgg.Upsample):
+                h = vgg.upsample_nearest2x(h)
+            elif isinstance(layer, vgg.Tap) and layer.name == stop_at:
+                return h
+        return h
+
+    out = {}
+    with torch.no_grad(), no_tf32():
+        feat = walk(engine.enc, x, vgg.ENCODER_ARCH, 1, stop_at="relu4_1")
+        walk(engine.dec, fused_adain_reference(feat, mean, std, 1.0), vgg.DECODER_ARCH,
+             EXP_STYLES)
+        for shape, (names, h, cw, relu, n) in layers.items():
+            cudnn = cudnn_bf16_conv(torch, h, cw)
+            row = dict(layers=names, launches_a_batch=n,
+                       **conv_bound(shape, F32_PEAK_TFLOPS, 4, 4))
+            for key, fn in (("ms", lambda: reflect_conv3x3(h, cw, relu)),
+                            ("cudnn_f32_ms", cudnn),
+                            ("plain_ms", lambda: reflect_conv3x3_reference(h, cw.w, cw.b, relu))):
+                row[key] = graph_ms(torch, fn, 20, 5)["median"]
+            out[str(list(shape))] = row
+    return out
+
+
+def run_experiments_phase(torch, dev, smi, counters):
+    """Phase 11: the port's semantic validation (``--quick``: all four arms,
+    seed 1) and privacy finding (``--quick``) on the card, each stage's launches
+    read around it; the privacy bars; then the card's kernels against their
+    plain versions on the chain's own 32 px images, banks and weights."""
+    import numpy as np
+
+    from ccst_tpu_torch.data.lists import parse_list, train_list_path
+    from ccst_tpu_torch.experiments import privacy_leakage as tpl
+    from ccst_tpu_torch.experiments import semantic_validation as tsv
+    from ccst_tpu_torch.kernels.adain import fused_adain_reference
+    from ccst_tpu_torch.kernels.moments import channel_moments, channel_moments_reference
+    from ccst_tpu_torch.kernels.qconv import qconv3x3_s8_reference
+    from ccst_tpu_torch.models import convert, vgg, vgg_fast
+    from ccst_tpu_torch.pipeline.style_bank import load_style_stats
+    from ccst_tpu_torch.pipeline.stylize import StylizeEngine
+
+    t_phase = time.perf_counter()
+    stages = []  # (experiment, stage, launches, expected)
+    current = [""]  # the experiment running
+
+    def counted(module, name):
+        inner = getattr(module, name)
+
+        def stage(*args, **kw):
+            before = {k: fn.launches for k, fn in counters.items()}
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            got = {k: fn.launches - before[k] for k, fn in counters.items()}
+            want = experiment_launches(name, args, kw)
+            stages.append((current[0], name, got, {k: want.get(k, 0) for k in counters}))
+            return out
+        setattr(module, name, stage)
+        return inner
+
+    wrapped = [(tsv, n) for n in (
+        "make_experiment_encoder", "pretrain_encoder", "train_decoder", "compute_style_bank",
+        "run_calibration", "run_overall_transfer", "run_single_transfer", "run_fed")]
+    wrapped += [(tpl, n) for n in (
+        "make_experiment_encoder", "pretrain_encoder", "compute_style_bank", "train_inverter",
+        "evaluate_inverter")]
+    originals = [(m, n, counted(m, n)) for m, n in wrapped]
+    with tempfile.TemporaryDirectory(prefix="ccst_smoke_exp_") as work:
+        sem_out = os.path.join(work, "semantic.json")
+
+        def privacy(seed):
+            """The privacy finding at ``--quick`` from ``initial_weights(seed)``:
+            the default through the CLI's ``main``, the others through ``run``."""
+            out = os.path.join(work, f"privacy_{seed}.json")
+            dirs = [os.path.join(work, f"grids_{seed}"), os.path.join(work, f"pl_{seed}")]
+            if seed == 0:
+                return lambda: tpl.main(["--quick", "--device", "cuda", "--out", out,
+                                         "--grids", dirs[0], "--workdir", dirs[1]])
+            enc0, dec0, head0 = tsv.initial_weights(seed)
+            return lambda: tpl.run(dirs[1], out, dirs[0], **tpl.QUICK, device="cuda",
+                                   init=enc0, dec=dec0, head=head0)
+
+        totals = {}
+        try:
+            for experiment, run in (
+                    ("semantic", lambda: tsv.main([
+                        "--quick", "--device", "cuda", "--seeds", "1", "--out", sem_out,
+                        "--workdir", os.path.join(work, "sv")])),
+                    *((f"privacy {seed}", privacy(seed)) for seed in EXP_DRAWS)):
+                for fn in counters.values():
+                    fn.launches = 0
+                current[0] = experiment
+                t0 = time.perf_counter()
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    run()
+                torch.cuda.synchronize()
+                totals[experiment] = {k: fn.launches for k, fn in counters.items()}
+                print(f"{experiment}: {time.perf_counter() - t0:.1f} s; last lines: "
+                      + " | ".join(out.getvalue().strip().splitlines()[-3:])[-600:])
+        finally:
+            for m, n, inner in originals:
+                setattr(m, n, inner)
+
+        # (c) every stage's launches, and nothing launched outside the stages
+        for experiment, name, got, want in stages:
+            if got != want:
+                fail(f"phase 11 {experiment} {name}: kernel launches {got}, expected {want}")
+        for experiment, total in totals.items():
+            want = {k: sum(w[k] for e, _, _, w in stages if e == experiment) for k in counters}
+            if total != want:
+                fail(f"phase 11 {experiment}: {total} launches in all, its stages {want}")
+        by_stage = {}
+        for experiment, name, got, _ in stages:
+            row = by_stage.setdefault(f"{experiment} {name}", {"calls": 0})
+            row["calls"] += 1
+            for k, v in got.items():
+                if v:
+                    row[k] = row.get(k, 0) + v
+        print("phase 11 launches by stage (as expected): " + json.dumps(by_stage))
+
+        # (d) the artifacts: the JAX scripts' keys and the device
+        with open(sem_out) as f:
+            sem = json.load(f)
+        privs = {}
+        for seed in EXP_DRAWS:
+            with open(os.path.join(work, f"privacy_{seed}.json")) as f:
+                privs[seed] = json.load(f)
+        for tag, art, keys in (("semantic", sem, EXP_SEMANTIC_KEYS),
+                               *((f"privacy {seed}", a, EXP_PRIVACY_KEYS)
+                                 for seed, a in privs.items())):
+            if not keys <= set(art) or art.get("device") != smi:
+                fail(f"phase 11 {tag} artifact: keys {sorted(set(art))}, device "
+                     f"{art.get('device')!r} (expected {smi!r})")
+        if sorted(r["seed"] for rs in sem["per_arm"].values() for r in rs) != [1, 1, 1, 1]:
+            fail(f"phase 11: the semantic run measured {sem['per_arm']}")
+        for arm, acc in sem["mean_test_acc"].items():
+            if not 0.0 <= acc <= 1.0:
+                fail(f"phase 11: {arm} accuracy {acc}")
+
+        # (a) the privacy finding at the --quick sizes, over the draws
+        draws = {}
+        for seed, art in privs.items():
+            r = art["per_source"]["rot0"]
+            draws[seed] = {"per_image_psnr": r["per_image"]["psnr_mean"],
+                           "overall_psnr": r["overall"]["psnr_mean"],
+                           "mean_image_psnr": r["mean_image_baseline"]["psnr_mean"],
+                           "leakage_gap_db": r["leakage_gap_db"]}
+            print(f"privacy (--quick, rot0, initial_weights({seed})): " + json.dumps(draws[seed]))
+            if not r["overall"]["psnr_mean"] <= (r["mean_image_baseline"]["psnr_mean"]
+                                                 + EXP_OVERALL_SLACK_DB):
+                fail(f"phase 11 draw {seed}: overall {r['overall']['psnr_mean']:.2f} dB > mean "
+                     f"image {r['mean_image_baseline']['psnr_mean']:.2f} + {EXP_OVERALL_SLACK_DB}")
+        gap = float(np.median([d["leakage_gap_db"] for d in draws.values()]))
+        if not gap > EXP_PRIVACY_GAP_DB:
+            fail(f"phase 11: median leakage gap {gap:.2f} dB <= {EXP_PRIVACY_GAP_DB}")
+
+        # (b) the kernels at the chain's own small shapes against their plain
+        # versions on the card (these launches are not the main path's)
+        sv_root = os.path.join(work, "sv", "bf16_s1")
+        q8_root = os.path.join(work, "sv", "int8_s1")
+        enc = convert.load_encoder(os.path.join(sv_root, "encoder_lsuv.npz"))
+        dec = convert.load_decoder(os.path.join(sv_root, "decoder_trained.npz"))
+        size = tsv.IMAGE_SIZE
+        names = parse_list(train_list_path(sv_root, "shapes4", "rot0"))[0][:8]
+        images_u8 = torch.from_numpy(read_images(
+            [os.path.join(sv_root, n) for n in names])).to(dev)
+        small = {}
+
+        def banks(root):
+            stats = [load_style_stats(os.path.join(root, "style_stats", "shapes4",
+                                                   f"{d}_mean_std.npz"))
+                     for d in tsv.DOMAINS if d != "rot0"]
+            return (torch.tensor(np.stack([m for m, _ in stats]), device=dev),
+                    torch.tensor(np.stack([s for _, s in stats]), device=dev))
+
+        s_means, s_stds = banks(sv_root)
+        engine32 = StylizeEngine(enc, dec, dtype=torch.float32, device=dev)
+        got = engine32.stylize_multi(images_u8, s_means, s_stds, 1.0)
+        with torch.no_grad():
+            feat = plain_apply(engine32.enc, images_u8.float() / 255.0, vgg.ENCODER_ARCH,
+                               stop_at="relu4_1")
+            want = torch.stack([plain_apply(engine32.dec, fused_adain_reference(feat, m, s, 1.0),
+                                            vgg.DECODER_ARCH)
+                                for m, s in zip(s_means, s_stds)])
+        if got.shape != (EXP_STYLES, 8, size, size, 3) or not bool(got.isfinite().all()):
+            fail(f"phase 11 ref float32: shape {tuple(got.shape)} or non-finite values")
+        small["ref float32 MAE"] = (got - want).abs().mean().item()
+        small["ref float32 output span"] = spread_of("ref float32", want)
+        if not small["ref float32 MAE"] <= F32_MAE_BAR:
+            fail(f"phase 11 ref float32 at {size} px: MAE {small['ref float32 MAE']:.3e} > "
+                 f"{F32_MAE_BAR}")
+        # Single mode's style statistics: K3 float32 and K5 on one 4 x 4 map
+        s_mean, s_std = engine32.style_stats_of(images_u8[:1])
+        mean, m2, count = channel_moments_reference(feat[:1])
+        small["single stats max err"] = max(
+            check_close("phase 11 single mean", s_mean, mean, rtol=1e-5, atol=1e-6)[0],
+            check_close("phase 11 single std", s_std, torch.sqrt(m2 / count + 1e-5),
+                        rtol=1e-4, atol=1e-6)[0])
+
+        scales = vgg_fast.load_scales(os.path.join(q8_root, "style_stats", "shapes4",
+                                                   "rot0_q8_scales.json"))
+        q_means, q_stds = banks(q8_root)
+        engine8 = StylizeEngine(enc, dec, dtype=torch.bfloat16, device=dev, engine="int8-static",
+                                scales=scales)
+        got8 = engine8.stylize_multi(images_u8, q_means, q_stds, 1.0)
+        ep = vgg_fast.prepare_encoder_q8s(engine8._enc_w, scales, torch.bfloat16, dev)
+        dp = vgg_fast.prepare_decoder_q8s(engine8._dec_w, scales, torch.bfloat16, dev)
+
+        def plain_qconv(x, q, relu, dtype, pad):
+            return qconv3x3_s8_reference(x, q.wq, q.k, q.kb, relu, q.requant, dtype, pad)
+
+        with torch.no_grad():
+            x8 = (images_u8.float() / 255.0).to(torch.bfloat16)
+            feat8 = vgg_fast._encode(ep, x8, torch.bfloat16, False, qconv=plain_qconv)
+            check_equal(torch, f"phase 11 int8-static relu4_1 {tuple(feat8.shape)}",
+                        vgg_fast.apply_encoder_q8s(ep, x8), feat8)
+            want8 = torch.stack([
+                vgg_fast._decode(dp, fused_adain_reference(feat8, m, s, 1.0), torch.bfloat16,
+                                 False, qconv=plain_qconv).float()
+                for m, s in zip(q_means, q_stds)])
+        small["int8-static MAE"] = (got8 - want8).abs().mean().item()
+        small["int8-static output span"] = spread_of("int8-static", want8)
+        if got8.shape != want8.shape or not small["int8-static MAE"] <= MAE_BAR:
+            fail(f"phase 11 int8-static at {size} px: shape {tuple(got8.shape)}, MAE "
+                 f"{small['int8-static MAE']:.3e} > {MAE_BAR}")
+
+        # the banks' moments: K5 on each domain's first bank batch of relu4_1
+        # and the bf16 encoder (K3 bf16) that gives them against its plain version,
+        # per image within Z_REL_TOL of the image's largest feature (phase 8's rule)
+        enc16 = vgg.prepare_params(enc, torch.bfloat16, dev)
+        k5_err, z_err = [0.0, 0.0], 0.0
+        for d in tsv.DOMAINS:
+            paths = parse_list(train_list_path(sv_root, "shapes4", d))[0][:8]
+            x = torch.from_numpy(read_images([os.path.join(sv_root, p) for p in paths])).to(dev)
+            with torch.no_grad():
+                x16 = (x.float() / 255.0).to(torch.bfloat16)
+                f = vgg.apply_encoder(enc16, x16)
+                f_plain = plain_apply(enc16, x16, vgg.ENCODER_ARCH, stop_at="relu4_1")
+            peak = f_plain.float().flatten(1).abs().amax(dim=1)
+            z_err = max(z_err, ((f.float() - f_plain.float()).flatten(1).abs().amax(dim=1)
+                                / peak).max().item())
+            if f.shape != f_plain.shape or not bool(f.isfinite().all()) or not z_err <= Z_REL_TOL:
+                fail(f"phase 11 bf16 encoder {d} {tuple(f.shape)}: {z_err:.3e} of the image's "
+                     f"largest feature > {Z_REL_TOL}")
+            (gm, gm2, gc), (rm, rm2, rc) = channel_moments(f), channel_moments_reference(f)
+            if gc.item() != rc.item():
+                fail(f"phase 11 K5 {tuple(f.shape)}: count {gc.item()} != {rc.item()}")
+            k5_err[0] = max(k5_err[0], check_close(f"phase 11 K5 mean {d} {tuple(f.shape)}",
+                                                   gm, rm, rtol=1e-5, atol=0.0)[0])
+            k5_err[1] = max(k5_err[1], check_close(f"phase 11 K5 m2 {d} {tuple(f.shape)}",
+                                                   gm2, rm2, rtol=1e-4, atol=0.0)[0])
+        small["K5 mean max err"], small["K5 m2 max err"] = k5_err
+        small["bf16 encoder relu4_1 err (of each image's max)"] = z_err
+        print(f"phase 11 at {size} px against the plain versions: " + json.dumps(small))
+
+        # the device times at these shapes (replayed CUDA graphs), beside the bounds
+        from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
+        from ccst_tpu_torch.kernels.adain import fused_adain_multi
+
+        with torch.no_grad():
+            f32 = vgg.apply_encoder(engine32.enc, images_u8.float() / 255.0)
+            f16 = vgg_fast.apply_encoder_q8s(ep, x8)
+        timed = {}
+        for name, fn, t in (
+                (f"K5 {tuple(f.shape)} bf16", lambda: channel_moments(f), f),
+                (f"K4 {tuple(f32.shape)} float32 S=3",
+                 lambda: fused_adain_multi(f32, s_means, s_stds, 1.0), f32),
+                (f"K4 {tuple(f16.shape)} bf16 S=3",
+                 lambda: fused_adain_multi(f16, q_means, q_stds, 1.0), f16)):
+            n, nbytes = t.numel(), t.element_size()
+            bd = (bound(6 * n, F32_PEAK_TFLOPS, n * nbytes) if name.startswith("K5") else
+                  bound((4 + 6 * EXP_STYLES) * n, F32_PEAK_TFLOPS, (1 + EXP_STYLES) * n * nbytes))
+            timed[name] = dict(ms=graph_ms(torch, fn, SMALL_REPS, 5)["median"], **bd)
+        for name, eng, m, sd in (("stylize_multi ref float32", engine32, s_means, s_stds),
+                                 ("stylize_multi int8-static", engine8, q_means, q_stds)):
+            timed[f"{name} (8 x {size} px, 3 styles)"] = dict(ms=graph_ms(
+                torch, lambda: eng.stylize_multi(images_u8, m, sd, 1.0), 1, 5)["median"])
+        print(f"phase 11 device times at {size} px: " + json.dumps(timed))
+        k3_f32 = time_k3_layers(torch, engine32, images_u8.float() / 255.0, s_means[0],
+                                s_stds[0])
+        total = sum(r["ms"] * r["launches_a_batch"] for r in k3_f32.values())
+        print(f"phase 11 K3 float32 by layer at {size} px (graph replays; the ref stylize's "
+              f"{sum(r['launches_a_batch'] for r in k3_f32.values())} launches sum to "
+              f"{total:.4f} ms): " + json.dumps(k3_f32))
+
+    launches = {k: sum(t[k] for t in totals.values()) for k in counters}
+    stage_seconds = {f"{tag} {t['stage']}" + "".join(f" {t[k]}" for k in ("arm", "source")
+                                                      if k in t): t["seconds"]
+                     for tag, art in (("semantic", sem),
+                                      *((f"privacy {seed}", a) for seed, a in privs.items()))
+                     for t in art["timing"]}
+    return {"device": smi, "stage_seconds": stage_seconds,
+            "mean_test_acc": sem["mean_test_acc"], "median_leakage_gap_db": gap,
+            "privacy_draws": draws, "small_shapes": small, "small_shape_ms": timed,
+            "k3_float32_by_layer": k3_f32,
+            "launches_by_stage": by_stage,
+            "launches": {k: v for k, v in launches.items() if v},
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
 def check_step_bits(torch, dev):
     """ROADMAP F3: one ResNet-50 step (fedavg, batch 32, 222 px, TF32 off)
     twice in this process and once in another, bit for bit, with cuDNN as the
@@ -2958,7 +3406,7 @@ def main() -> int:
         print("cli seconds: " + json.dumps({k: round(v, 3) for k, v in t_steps.items()}))
 
         # -- 5. whole paths vs plain paths ------------------------------------
-        from ccst_tpu_torch.models.vgg import Conv, Pool, Tap, Upsample
+        from ccst_tpu_torch.models.vgg import Conv, Pool, Upsample
 
         banks = [load_style_stats(os.path.join(stats_dir, "pacs", f"{d}_mean_std.npz"))
                  for d in DOMAINS if d != "photo"]
@@ -2970,22 +3418,6 @@ def main() -> int:
 
     engine = StylizeEngine(enc, dec, dtype=torch.bfloat16, device=dev)
     got = engine.stylize_multi(images_u8, s_means, s_stds, 1.0)
-
-    def plain_apply(params, x, arch, stop_at=""):
-        for layer in arch:
-            if isinstance(layer, Conv):
-                cw = params[layer.name]
-                if layer.ksize == 3:
-                    x = reflect_conv3x3_reference(x, cw.w, cw.b, layer.relu)
-                else:
-                    x = vgg.conv1x1(x, cw)
-            elif isinstance(layer, Pool):
-                x = vgg.maxpool_ceil(x)
-            elif isinstance(layer, Upsample):
-                x = vgg.upsample_nearest2x(x)
-            elif isinstance(layer, Tap) and layer.name == stop_at:
-                return x
-        return x
 
     with torch.no_grad():
         x = (images_u8.float() / 255.0).to(torch.bfloat16)
@@ -3264,26 +3696,33 @@ def main() -> int:
     for k, v in sharding["launches"].items():
         launches[k] = launches.get(k, 0) + v
 
+    # -- 11. the end-to-end validation experiments -------------------------
+    experiments = run_experiments_phase(torch, dev, smi, counters)
+    for k, v in experiments["launches"].items():
+        launches[k] += v
+
     sources = {
         "K3": ("reflect_conv3x3", "cuda", "ccst_tpu_torch/csrc/reflect_conv3x3.cu",
                "ccst_tpu/kernels/conv_pallas.py:102", list(K3_MAIN),
                "stylize ref, packed; train-decoder, invert-train, invert-eval, gan-train "
                "--fid-samples (grad-free passes); invert-train on 2 ranks, train-decoder on "
-               "a 2-rank mesh (each rank); the row-sharded stylize ref (each rank)"),
+               "a 2-rank mesh (each rank); the row-sharded stylize ref (each rank); the "
+               "experiments (LSUV, banks, ref and Single stylize, the trainers' passes)"),
         "K4": ("fused_adain_multi", "cuda", "ccst_tpu_torch/csrc/adain.cu",
                "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
                "stylize (every engine, both modes); the batch-sharded int8-static stylize "
-               "(each rank)"),
+               "(each rank); the experiments' stylize arms"),
         "K4-given": ("fused_adain_given", "cuda", "ccst_tpu_torch/csrc/adain.cu",
                      "ccst_tpu/kernels/adain_pallas.py:56", list(relu4_1_shape(batch)),
                      "the row-sharded stylize, ref and int8-static (each rank)"),
         "K5": ("channel_moments", "cuda", "ccst_tpu_torch/csrc/moments.cu",
                "ccst_tpu/kernels/welford_pallas.py:52", list(relu4_1_shape(batch)),
-               "style-bank, stylize --mode single; the row-sharded stylize (each rank)"),
+               "style-bank, stylize --mode single; the row-sharded stylize (each rank); the "
+               "experiments' banks and Single arm"),
         "K0": ("qconv3x3_s8", "cuda", "ccst_tpu_torch/csrc/qconv3x3_s8.cu",
                "ccst_tpu/models/vgg_fast.py:381", list(K0_MAIN),
                "stylize int8-fused, int8; the row- and batch-sharded int8-static stylize "
-               "(each rank)"),
+               "(each rank); the experiments' int8-static arm"),
         "K1": ("encoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
                "ccst_tpu/kernels/level1_pallas.py:367", [4, 256, 256, 12], "stylize int8-fused"),
         "K2": ("decoder_level1", "cuda", "ccst_tpu_torch/csrc/level1_s8.cu",
@@ -3342,6 +3781,7 @@ def main() -> int:
     print(json.dumps({"privacy": privacy}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"sharding": sharding}))
+    print(json.dumps({"experiments": experiments}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

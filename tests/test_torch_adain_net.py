@@ -132,3 +132,24 @@ def test_frozen_passes_never_reach_a_kernel_with_grad(setup, monkeypatch):
     tnet.adain_losses(tnet.frozen_encoder(enc, "cpu"), tvgg.trainable_params(dec, "cpu"),
                       torch.from_numpy(content), torch.from_numpy(style))
     assert len(seen) == 18 and not any(seen)
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_reflect_pad_in_either_mode_equals_f_pad(deterministic):
+    """The autograd route's reflect pad: ``F.pad``, or under cuDNN's
+    deterministic mode slices and concatenations; the same values either way,
+    and gradients within float32's rounding of ``F.pad``'s (a border element's
+    gradient sums up to four terms, in another order)."""
+    from ccst_tpu_torch.utils.precision import no_tf32
+
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal((2, 5, 4, 7)), dtype=torch.float32, requires_grad=True)
+    g = torch.tensor(rng.standard_normal((2, 5, 6, 9)), dtype=torch.float32)
+    with no_tf32(deterministic=deterministic):
+        assert torch.backends.cudnn.deterministic == deterministic
+        got = tvgg._reflect_pad1(x)
+        (dx,) = torch.autograd.grad(got, x, g)
+    want = torch.nn.functional.pad(x, (1, 1, 1, 1), mode="reflect")
+    (dx_want,) = torch.autograd.grad(want, x, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(dx, dx_want, rtol=1e-6, atol=1e-6)

@@ -74,15 +74,18 @@ def test_port_has_sources_to_walk():
             "ccst_tpu_torch/parallel/spatial.py", "ccst_tpu_torch/parallel/tensor.py",
             "ccst_tpu_torch/utils/swa.py", "ccst_tpu_torch/utils/plotting.py",
             "ccst_tpu_torch/utils/excel_log.py", "ccst_tpu_torch/pipeline/repro.py",
+            "ccst_tpu_torch/experiments/semantic_validation.py",
+            "ccst_tpu_torch/experiments/privacy_leakage.py",
             "tests/torch_multihost_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_ccst_tpu_or_jax(path):
     # nor triton: every kernel of the port is CUDA C++ under csrc/; nor msgpack:
-    # the card's machine has none (utils/checkpoint.py reads flax's msgpack itself)
+    # the card's machine has none (utils/checkpoint.py reads flax's msgpack itself);
+    # nor the JAX project's experiments/ (the port keeps its own copies)
     banned = _imported_roots(path) & {"ccst_tpu", "jax", "jaxlib", "flax", "optax", "triton",
-                                      "msgpack"}
+                                      "msgpack", "experiments"}
     assert not banned, f"{os.path.relpath(path, REPO)} imports {sorted(banned)}"
 
 
@@ -177,6 +180,51 @@ def test_digits_module_equals_original(tmp_path):
         np.testing.assert_array_equal(a.images, b.images)
         np.testing.assert_array_equal(a.labels, b.labels)
         assert a.valid == b.valid
+
+
+# ---- the experiments' pure functions ---------------------------------------
+
+
+def test_experiment_domains_and_classes_equal_original():
+    import ccst_tpu_torch.experiments.semantic_validation as tsv
+    import experiments.semantic_validation as jsv
+
+    assert (tsv.DOMAINS, tsv.CLASSES) == (jsv.DOMAINS, jsv.CLASSES)
+    assert (tsv._FG_LUM, tsv._BG_LUM) == (jsv._FG_LUM, jsv._BG_LUM)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_image_tint_and_mask_equal_original(seed):
+    """The same draws from the same generator give the same arrays, and leave
+    the generators in the same state."""
+    import ccst_tpu_torch.experiments.semantic_validation as tsv
+    import experiments.semantic_validation as jsv
+
+    ours, theirs = np.random.default_rng(seed), np.random.default_rng(seed)
+    for size in (32, 64, 17):
+        for d in jsv.DOMAINS:
+            for ci, cls in enumerate(jsv.CLASSES):
+                np.testing.assert_array_equal(tsv._mask(cls, size, ours),
+                                              jsv._mask(cls, size, theirs))
+                np.testing.assert_array_equal(tsv._image_tint(d, ci, ours),
+                                              jsv._image_tint(d, ci, theirs))
+    assert ours.bit_generator.state == theirs.bit_generator.state
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_paired_orderings_equal_original(seed):
+    """Random per-arm results over up to 5 seeds, some arms missing seeds or
+    empty."""
+    import ccst_tpu_torch.experiments.semantic_validation as tsv
+    import experiments.semantic_validation as jsv
+
+    rng = np.random.default_rng(seed)
+    results = {
+        arm: [{"seed": s, "test_acc": float(rng.integers(0, 41)) / 40, "round": 3}
+              for s in sorted(rng.choice(5, size=rng.integers(0, 6), replace=False) + 1)]
+        for arm in ("no_fusion", "bf16", "int8", "single")
+    }
+    assert tsv._paired_orderings(results) == jsv._paired_orderings(results)
 
 
 def test_dataset_spec_rejects_unknown_names():
