@@ -463,9 +463,11 @@ def _load_prior(out: str, device: str):
 
 @deterministic
 def run(workdir: str, out: str, seeds: Sequence[int], arms: Sequence[str], *, size: int,
-        n_per_class: int, ae_steps: int, dec_steps: int, rounds: int, device="cuda") -> Dict:
+        n_per_class: int, ae_steps: int, dec_steps: int, rounds: int, device="cuda",
+        init=None, dec=None, head=None) -> Dict:
     """Every selected (arm, seed) not already in ``out``; writes and returns
-    the summary."""
+    the summary. ``init``, ``dec``, ``head``: the starting encoder,
+    autoencoder decoder and tint head (default: :func:`initial_weights`')."""
     dev = require_device(str(device))
     label = device_label(dev)
     _register(size)
@@ -481,6 +483,7 @@ def run(workdir: str, out: str, seeds: Sequence[int], arms: Sequence[str], *, si
         return seconds
 
     enc = dec_ae_path = None
+    dec0, head0 = dec, head  # the autoencoder's start; below, dec is a seed's stylizer
     for seed in seeds:
         dec = None
         for arm, engine_kind, mode in ARMS:
@@ -495,8 +498,9 @@ def run(workdir: str, out: str, seeds: Sequence[int], arms: Sequence[str], *, si
                         load_image(os.path.join(root, f"SHAPES4/kfold/{d}/{c}/img000.png"), size)
                         for d in DOMAINS[:-1] for c in CLASSES])
                     t0 = time.perf_counter()
-                    enc = make_experiment_encoder(probes, device=dev)
-                    enc, dec_ae_path = pretrain_encoder(root, size, ae_steps, enc, device=dev)
+                    enc = make_experiment_encoder(probes, device=dev, init=init)
+                    enc, dec_ae_path = pretrain_encoder(root, size, ae_steps, enc, device=dev,
+                                                        dec=dec0, head=head0)
                     s = clock("ae_pretrain", t0, steps=ae_steps)
                     timing[-1]["steps_per_sec"] = ae_steps / s
                 if dec is None:

@@ -27,7 +27,7 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      time of an empty kernel launched the same way; K0 int8 conv at every shape of the int8 engines, K1
      fused level-1 encoder and K2 fused level-1 decoder bit for bit, K2 and
      the two K0 launches it replaces timed on the device from a replayed
-     CUDA graph at batch 4 and 32; the int8 A/B
+     CUDA graph at batch 4 and 32, its plain version at both; the int8 A/B
      kernels bit for bit at the harnesses' full-width shapes: B1 tiled GEMM
      (int8 -> int32, int8 -> float32, bf16 -> float32, M = 2^18, the five
      (K, N) of the sweep; beside it, for comparison only, the one library call
@@ -195,7 +195,10 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      version (each image within 1e-2 of its largest relu4_1 value) and K5 on
      each domain's first bank batch (8, 4, 4, 512) (mean rtol 1e-5, M2 1e-4),
      then K3 float32 timed at every conv shape of the ``ref`` stylize beside
-     cuDNN's float32 conv, its plain version and its bound; (d) both artifacts
+     cuDNN's float32 conv, its plain version and its bound, and K4, K5 and the
+     ``int8-static`` batch at these shapes beside their plain versions, K5
+     beside ``torch.var_mean``, the batch beside the sum of its K0 and K4
+     launches' bounds; (d) both artifacts
      carry the JAX scripts' keys and the card. An ``experiments`` JSON line
      reports each stage's seconds, the accuracies, the gaps and the launches.
 
@@ -726,13 +729,12 @@ def check_int8_kernels(torch, dev, gen, results):
                        **bound(2 * nb * hb * wb * k2_macs, INT8_PEAK_TOPS,
                                nb * hb * wb * (64 + 2 * 12) + k2_macs))
             row["tops"] = 2 * nb * hb * wb * k2_macs / (ms * 1e-3) / 1e12
-            line = ""
+            row["plain_ms"] = time_ms(
+                torch, lambda: decoder_level1_reference(yb, d2, d1, torch.bfloat16), reps=2, runs=3)
+            line = f"; plain f64 chain {row['plain_ms']:.4f} ms"
             if nb == n:
                 row["call_ms"] = time_ms(torch, kernel)
-                row["plain_ms"] = time_ms(
-                    torch, lambda: decoder_level1_reference(y, d2, d1, torch.bfloat16), reps=2, runs=3)
-                line = (f", {row['call_ms']:.4f} ms a call from the host; plain f64 chain "
-                        f"{row['plain_ms']:.4f} ms")
+                line = f", {row['call_ms']:.4f} ms a call from the host" + line
             results["K2"].append(row)
             print(f"K2 level1 {(nb, hb, wb)} packed: bit-exact | kernel {ms:.4f} ms on the device "
                   f"(CUDA graph of {reps}; {row['tops']:.1f} TOPS of the unfused chain's MACs) bound "
@@ -2656,7 +2658,7 @@ def run_experiments_phase(torch, dev, smi, counters):
     from ccst_tpu_torch.data.lists import parse_list, train_list_path
     from ccst_tpu_torch.experiments import privacy_leakage as tpl
     from ccst_tpu_torch.experiments import semantic_validation as tsv
-    from ccst_tpu_torch.kernels.adain import fused_adain_reference
+    from ccst_tpu_torch.kernels.adain import fused_adain_multi_reference, fused_adain_reference
     from ccst_tpu_torch.kernels.moments import channel_moments, channel_moments_reference
     from ccst_tpu_torch.kernels.qconv import qconv3x3_s8_reference
     from ccst_tpu_torch.models import convert, vgg, vgg_fast
@@ -2885,20 +2887,54 @@ def run_experiments_phase(torch, dev, smi, counters):
             f32 = vgg.apply_encoder(engine32.enc, images_u8.float() / 255.0)
             f16 = vgg_fast.apply_encoder_q8s(ep, x8)
         timed = {}
-        for name, fn, t in (
-                (f"K5 {tuple(f.shape)} bf16", lambda: channel_moments(f), f),
+        for name, fn, plain, t in (
+                (f"K5 {tuple(f.shape)} bf16", lambda: channel_moments(f),
+                 lambda: channel_moments_reference(f), f),
                 (f"K4 {tuple(f32.shape)} float32 S=3",
-                 lambda: fused_adain_multi(f32, s_means, s_stds, 1.0), f32),
+                 lambda: fused_adain_multi(f32, s_means, s_stds, 1.0),
+                 lambda: fused_adain_multi_reference(f32, s_means, s_stds, 1.0), f32),
                 (f"K4 {tuple(f16.shape)} bf16 S=3",
-                 lambda: fused_adain_multi(f16, q_means, q_stds, 1.0), f16)):
+                 lambda: fused_adain_multi(f16, q_means, q_stds, 1.0),
+                 lambda: fused_adain_multi_reference(f16, q_means, q_stds, 1.0), f16)):
             n, nbytes = t.numel(), t.element_size()
             bd = (bound(6 * n, F32_PEAK_TFLOPS, n * nbytes) if name.startswith("K5") else
                   bound((4 + 6 * EXP_STYLES) * n, F32_PEAK_TFLOPS, (1 + EXP_STYLES) * n * nbytes))
-            timed[name] = dict(ms=graph_ms(torch, fn, SMALL_REPS, 5)["median"], **bd)
+            timed[name] = dict(ms=graph_ms(torch, fn, SMALL_REPS, 5)["median"],
+                               plain_ms=time_ms(torch, plain, reps=20, runs=3), **bd)
+        timed[f"K5 {tuple(f.shape)} bf16"]["library_ms"] = graph_ms(
+            torch, lambda: torch.var_mean(f, dim=(0, 1, 2), correction=0), SMALL_REPS, 5)["median"]
+
+        # the int8-static batch's bound: each K0 launch of one encode and the
+        # decodes of every style, and K4, each at its own bound
+        k0_shapes = []
+
+        def recorded_qconv(x, q, relu, dtype, pad):
+            y = vgg_fast.qconv3x3_s8(x, q, relu, dtype, pad)
+            k0_shapes.append((*x.shape, y.shape[-1], y.element_size()))
+            return y
+
+        with torch.no_grad():
+            f8 = vgg_fast._encode(ep, x8, torch.bfloat16, False, qconv=recorded_qconv)
+            for m, sd in zip(q_means, q_stds):
+                vgg_fast._decode(dp, fused_adain_reference(f8, m, sd, 1.0), torch.bfloat16,
+                                 False, qconv=recorded_qconv)
+        q8_bound = sum(conv_bound(shape[:5], INT8_PEAK_TOPS, 1, shape[5])["bound_ms"]
+                       for shape in k0_shapes) + timed[f"K4 {tuple(f16.shape)} bf16 S=3"]["bound_ms"]
+
+        def plain_q8():
+            with torch.no_grad():
+                feat = vgg_fast._encode(ep, x8, torch.bfloat16, False, qconv=plain_qconv)
+                return [vgg_fast._decode(dp, fused_adain_reference(feat, m, sd, 1.0),
+                                         torch.bfloat16, False, qconv=plain_qconv)
+                        for m, sd in zip(q_means, q_stds)]
+
         for name, eng, m, sd in (("stylize_multi ref float32", engine32, s_means, s_stds),
                                  ("stylize_multi int8-static", engine8, q_means, q_stds)):
             timed[f"{name} (8 x {size} px, 3 styles)"] = dict(ms=graph_ms(
                 torch, lambda: eng.stylize_multi(images_u8, m, sd, 1.0), 1, 5)["median"])
+        timed[f"stylize_multi int8-static (8 x {size} px, 3 styles)"].update(
+            plain_ms=time_ms(torch, plain_q8, reps=2, runs=3), bound_ms=q8_bound,
+            bound_by="the sum of the K0 and K4 launches' bounds", k0_launches=len(k0_shapes))
         print(f"phase 11 device times at {size} px: " + json.dumps(timed))
         k3_f32 = time_k3_layers(torch, engine32, images_u8.float() / 255.0, s_means[0],
                                 s_stds[0])

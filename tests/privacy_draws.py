@@ -17,6 +17,7 @@ script's about 5); run several as separate processes.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import tempfile
@@ -41,22 +42,30 @@ def jax_draws(k: int):
              "b": np.zeros((3,), np.float32)})
 
 
+@contextlib.contextmanager
+def jax_keys(k: int):
+    """``jax.random.PRNGKey`` with the JAX scripts' seeds 0, 7 and 13 moved to
+    1000 k + 0, 7 and 13 (every other seed as it is)."""
+    import jax
+
+    key = jax.random.PRNGKey
+    jax.random.PRNGKey = lambda s, *a, **kw: key(s + 1000 * k if s in (0, 7, 13) else s,
+                                                 *a, **kw)
+    try:
+        yield
+    finally:
+        jax.random.PRNGKey = key
+
+
 def run_draw(side: str, k: int, work: str) -> dict:
     import ccst_tpu_torch.experiments.privacy_leakage as tpl
 
     out, grids = f"{work}/out.json", f"{work}/grids"
     if side == "jax":
-        import jax
-
         from experiments.privacy_leakage import run
 
-        key = jax.random.PRNGKey
-        jax.random.PRNGKey = lambda s, *a, **kw: key(s + 1000 * k if s in (0, 7, 13) else s,
-                                                     *a, **kw)
-        try:
+        with jax_keys(k):
             summary = run(work, out, grids, **tpl.QUICK)
-        finally:
-            jax.random.PRNGKey = key
     else:
         import torch
 

@@ -271,6 +271,35 @@ def test_run_writes_the_jax_artifact_keys(tmp_path):
                 n_per_class=N_PER_CLASS, ae_steps=2, dec_steps=2, rounds=1, device="cpu")
 
 
+@pytest.mark.parametrize("given", [False, True])
+def test_run_hands_the_starting_weights_to_the_stages(tmp_path, monkeypatch, given):
+    """``run(init=, dec=, head=)`` reaches LSUV and the autoencoder once, at
+    the first stylized arm, as ``privacy_leakage.run`` hands them on; by
+    default the stages take :func:`initial_weights`' own (``None``)."""
+    seen = []
+    enc0, dec0, head0 = ({"conv": {"w": torch.zeros(1)}}, {"dconv": {"w": torch.ones(1)}},
+                         {"w": torch.full((1,), 2.0)}) if given else (None, None, None)
+
+    def encoder(probes, device, init=None):
+        seen.append(("lsuv", init))
+        return "lsuv"
+
+    def pretrain(root, size, steps, enc, device, dec=None, head=None):
+        seen.append(("ae", enc, dec, head))
+        return "enc", os.path.join(root, "decoder_ae.npz")
+
+    monkeypatch.setattr(tsv, "make_experiment_encoder", encoder)
+    monkeypatch.setattr(tsv, "pretrain_encoder", pretrain)
+    monkeypatch.setattr(tsv, "_train_stylizer", lambda *a, **kw: ("dec", {"steps_per_sec": 1.0}))
+    monkeypatch.setattr(tsv, "run_chain", lambda *a, **kw: None)
+    monkeypatch.setattr(tsv, "run_fed", lambda *a, **kw: {
+        "val_acc_mean": 0.5, "round": 0, "test_acc": 0.5, "round_seconds": [0.1]})
+    tsv.run(str(tmp_path / "work"), str(tmp_path / "out.json"), [1, 2], ["bf16", "single"],
+            size=SIZE, n_per_class=N_PER_CLASS, ae_steps=2, dec_steps=2, rounds=1, device="cpu",
+            init=enc0, dec=dec0, head=head0)
+    assert seen == [("lsuv", enc0), ("ae", "lsuv", dec0, head0)]
+
+
 def test_main_defaults_to_the_card_and_its_own_artifact(tmp_path, monkeypatch):
     import ccst_tpu_torch.experiments.privacy_leakage as tpl
 
