@@ -2,7 +2,7 @@
 stylizer, and the ordering Overall (``bf16``) above Single, depend on where
 the weights start, on each side.
 
-    python -m tests.semantic_draws {jax,port,port-from-jax} K
+    python -m tests.semantic_draws {jax,port,port-from-jax,mix-port-enc,mix-jax-enc} K
         [--depth stylizer|grid] [--quick] [--seeds 1,2,3,4,5] [--device cpu|cuda]
         [--threads N] [--save-stylizer DIR]
     python -m tests.semantic_draws {jax,port} 0 --stylizer DIR [--seeds S] [--quick]
@@ -20,7 +20,11 @@ Sides, as in ``tests/privacy_draws.py``:
   (K = 0: its default);
 - ``port-from-jax``: the port from the JAX script's draws of ``jax`` K
   (``--jax-draws DIR``: from ``DIR/kK.npz``, which ``save-draws`` writes on
-  the CPU, so that the card needs no JAX).
+  the CPU, so that the card needs no JAX);
+- ``mix-port-enc`` / ``mix-jax-enc``: the port from mixed draws of K, the
+  port's encoder with the JAX script's decoder and tint head, or the JAX
+  script's encoder with the port's decoder and head: which of the three
+  draws carries a difference between ``port`` and ``port-from-jax``.
 
 Depths:
 
@@ -37,7 +41,8 @@ stylized training tree and of the unstylized sources (:func:`tint_probe`).
 
 ``--stylizer DIR`` takes ``encoder_lsuv.npz`` and ``decoder_trained.npz`` from
 a run's data root (either package writes them; ``--save-stylizer`` copies
-the first seed's out of a run) and runs the named side's ``run_chain`` and
+them out of a run: the stylizer depth's into DIR, the grid's of seed S into
+``DIR/sS``) and runs the named side's ``run_chain`` and
 ``fed-train`` from them, for ``bf16`` and ``single`` at the seed they were
 trained for: a stylizer of one package through the other's pipeline.
 
@@ -50,7 +55,8 @@ each other (the grids also across devices, a side and its device as one
 group); for the grids, each draw's arm means and paired gap and the share of
 (draw, seed) pairs with ``bf16`` above ``single``, and the rank correlation
 of a seed's Overall tint probe with its gap. ``--out`` writes the rows and
-the summary as one JSON file.
+every record read as one JSON file (a record a line), which ``summarize``
+reads back as it reads the runs' output.
 
 ``float64 K STEPS`` holds the two packages' autoencoder and decoder training
 to each other over ``STEPS`` steps from the JAX draws of K
@@ -185,14 +191,18 @@ class _Side:
             trainer = sv
             self.device = str(sv.require_device(device))
             self.wrap = sv.deterministic
-            if side == "port-from-jax" and jax_draws_dir:
-                self.init = load_draws(os.path.join(jax_draws_dir, f"k{k}.npz"))
-            elif side == "port-from-jax":
-                from tests.privacy_draws import jax_draws
+            self.init = sv.initial_weights(1000 * k)
+            if side != "port":
+                if jax_draws_dir:
+                    theirs = load_draws(os.path.join(jax_draws_dir, f"k{k}.npz"))
+                else:
+                    from tests.privacy_draws import jax_draws
 
-                self.init = jax_draws(k)
-            else:
-                self.init = sv.initial_weights(1000 * k)
+                    theirs = jax_draws(k)
+                own = self.init
+                self.init = {"port-from-jax": theirs,
+                             "mix-port-enc": (own[0],) + tuple(theirs[1:]),
+                             "mix-jax-enc": (theirs[0],) + tuple(own[1:])}[side]
         self.sv, self.trainer, self.load_image = sv, trainer, load_image
         self.load_encoder, self.load_decoder = load_encoder, load_decoder
         self.decoder_results = []
@@ -336,10 +346,12 @@ def run(args, work: str) -> dict:
     if args.depth == "stylizer" and not args.stylizer:
         row["decoder"] = _decoder(side.decoder_results[0])
     if args.save_stylizer and not args.stylizer:
-        src = os.path.join(work, f"bf16_s{seeds[0]}")
-        os.makedirs(args.save_stylizer, exist_ok=True)
-        for name in STYLIZER_FILES:
-            shutil.copy(os.path.join(src, name), os.path.join(args.save_stylizer, name))
+        grid = args.depth == "grid"
+        for seed in seeds if grid else seeds[:1]:
+            dst = os.path.join(args.save_stylizer, f"s{seed}") if grid else args.save_stylizer
+            os.makedirs(dst, exist_ok=True)
+            for name in STYLIZER_FILES:
+                shutil.copy(os.path.join(work, f"bf16_s{seed}", name), os.path.join(dst, name))
     return row
 
 
@@ -627,22 +639,28 @@ def _float64_summary(row: dict) -> dict:
 def summarize(files, out: str = "") -> dict:
     from scipy.stats import spearmanr
 
-    rows, extra = [], {}
+    rows, extra, records = [], {}, []
     for path in files:
         with open(path) as f:
-            for line in f:
-                line = line.strip()
-                if line.startswith("{"):
-                    row = json.loads(line)
-                    if "float64" in row:
-                        extra.setdefault("float64", []).append(_float64_summary(row))
-                    elif "statistics" in row:
-                        extra["draw_stats"] = row
-                    elif "side" in row:
-                        row.setdefault("depth", "privacy")  # a privacy_draws.py row
-                        row.setdefault("quick", True)
-                        row.setdefault("device", "cpu")
-                        rows.append(row)
+            text = f.read()
+        try:  # a file that --out wrote
+            lines = [json.dumps(r) for r in json.loads(text)["records"]]
+        except (ValueError, KeyError, TypeError):
+            lines = text.splitlines()
+        for line in lines:
+            line = line.strip()
+            if line.startswith("{"):
+                row = json.loads(line)
+                records.append(row)
+                if "float64" in row:
+                    extra.setdefault("float64", []).append(_float64_summary(row))
+                elif "statistics" in row:
+                    extra["draw_stats"] = row
+                elif "side" in row:
+                    row.setdefault("depth", "privacy")  # a privacy_draws.py row
+                    row.setdefault("quick", True)
+                    row.setdefault("device", "cpu")
+                    rows.append(row)
     cells = {}
     for row in rows:
         size = "quick" if row["quick"] else "full"
@@ -687,9 +705,7 @@ def summarize(files, out: str = "") -> dict:
     print(json.dumps(summary, indent=1))
     if out:
         with open(out, "w") as f:
-            json.dump({"rows": sorted(rows, key=lambda r: (r["depth"], r["quick"], r["device"],
-                                                           r["side"], r["k"])),
-                       "summary": summary}, f, indent=1)
+            f.write('{"records": [\n' + ",\n".join(json.dumps(r) for r in records) + "\n]}\n")
     return summary
 
 
@@ -717,7 +733,8 @@ def main(argv=None) -> dict:
         a = sp.parse_args(argv[1:])
         return summarize(a.files, a.out)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("side", choices=("jax", "port", "port-from-jax"))
+    ap.add_argument("side", choices=("jax", "port", "port-from-jax", "mix-port-enc",
+                                     "mix-jax-enc"))
     ap.add_argument("k", type=int)
     ap.add_argument("--depth", choices=("stylizer", "grid"), default="stylizer")
     ap.add_argument("--quick", action="store_true", help="the --quick sizes of the scripts")
@@ -728,14 +745,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--threads", type=int, default=2, help="torch's CPU threads")
     ap.add_argument("--stylizer", default="", help="a data root holding the stylizer files")
     ap.add_argument("--save-stylizer", default="",
-                    help="copy the first seed's stylizer files to this directory")
+                    help="copy the stylizer files to this directory (a grid's: each seed's "
+                         "to DIR/sS)")
     ap.add_argument("--jax-draws", default="",
-                    help="port-from-jax: read the draws from DIR/kK.npz (save-draws)")
+                    help="port-from-jax, mix-*: read the JAX draws from DIR/kK.npz "
+                         "(save-draws)")
     args = ap.parse_args(argv)
     args.seeds = [int(s) for s in args.seeds.split(",") if s.strip()]
     if args.side == "jax" and args.device != "cpu":
         ap.error("the JAX side runs on the CPU only")
-    if args.stylizer and args.side == "port-from-jax":
+    if args.stylizer and args.side not in ("jax", "port"):
         ap.error("--stylizer runs the pipeline of jax or port")
     import torch
 

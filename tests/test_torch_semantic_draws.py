@@ -91,7 +91,22 @@ def test_summary_counts_the_pairs_and_tests_each_side_against_each_other(tmp_pat
     assert summary["draw_stats"]["statistics"] == 117
     with open(out) as f:
         written = json.load(f)
-    assert written["summary"] == json.loads(json.dumps(summary)) and len(written["rows"]) == 8
+    assert len(written["records"]) == 10  # every record read, and nothing else
+    assert sd.summarize([out]) == summary  # the written file summarizes as its sources do
+
+
+@pytest.mark.parametrize("side", ["port-from-jax", "mix-port-enc", "mix-jax-enc"])
+def test_sides_start_from_the_draws_they_name(side):
+    from ccst_tpu_torch.experiments.semantic_validation import initial_weights
+
+    own, theirs = initial_weights(2000), jax_draws(2)
+    want = {"port-from-jax": theirs, "mix-port-enc": (own[0],) + theirs[1:],
+            "mix-jax-enc": (theirs[0],) + own[1:]}[side]
+    got = sd._Side(side, 2, "cpu").init
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        jax.tree.map(lambda x, y: np.testing.assert_array_equal(np.asarray(x), np.asarray(y)), g, w)
 
 
 def test_the_card_side_imports_no_jax():
