@@ -10,7 +10,7 @@ flags and defaults; every subcommand also takes ``--device`` (default
   ccst-tpu-torch calibrate  --dataset pacs --target photo --engine int8-fused ...
   ccst-tpu-torch stylize    --dataset pacs --target photo --mode overall|single \
                             --engine ref|packed|int8|int8-static|int8-fused \
-                            [--skip-existing] [--output-size 96] ...
+                            [--skip-existing] [--output-size 96] [--trace-dir DIR] ...
   ccst-tpu-torch reorganize --dataset pacs --target photo --list-root $DATA ...
   ccst-tpu-torch gen-lists  --dataset pacs --target photo --k 3 --list-root $DATA
   ccst-tpu-torch amp-bank   --dataset pacs --domain cartoon --list-root $DATA
@@ -29,6 +29,10 @@ variables) launches one rank of an N-process run on ``torch.distributed``
 / ``--data-shards`` above 1 need such a launch. ``fed-train --test-only``
 evaluates the best checkpoint (``ccst-tpu`` accepts the flag there and trains
 anyway).
+
+``stylize --trace-dir DIR`` and ``fed-train --trace-dir DIR`` write a
+``torch.profiler`` trace of the run (``DIR/trace.json``) and the port's spans
+and counters (``DIR/spans.json``, ``utils/profiling.py``).
 
   ccst-tpu-torch train-decoder --dataset pacs --domains art_painting,cartoon,sketch ...
   ccst-tpu-torch invert-train --dataset pacs --source art_painting --loss mse+perceptual ...
@@ -74,8 +78,10 @@ import numpy as np
 import torch
 
 
-def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls, skip=()) -> None:
     for f in fields(cls):
+        if f.name in skip:
+            continue
         arg = "--" + f.name.replace("_", "-")
         if f.type in ("bool", bool):
             parser.add_argument(arg, action="store_true", default=f.default)
@@ -520,7 +526,7 @@ def main(argv: Optional[list] = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("style-bank", help="compute per-domain style statistics")
-    _add_dataclass_args(p, StylizeConfig)
+    _add_dataclass_args(p, StylizeConfig, skip=("trace_dir",))
     p.add_argument("--domain", default="", help="single domain (default: all)")
     p.set_defaults(fn=cmd_style_bank)
 
@@ -529,7 +535,7 @@ def main(argv: Optional[list] = None) -> int:
     p.set_defaults(fn=cmd_stylize)
 
     p = sub.add_parser("calibrate", help="write int8-static calibration scales")
-    _add_dataclass_args(p, StylizeConfig)
+    _add_dataclass_args(p, StylizeConfig, skip=("trace_dir",))
     p.add_argument("--max-images", type=int, default=8)
     p.set_defaults(fn=cmd_calibrate)
 

@@ -112,6 +112,7 @@ class StylizeConfig:
                                       # self-calibrate on the first batch)
     save_ext: str = ""                # "" = keep original extension
     skip_existing: bool = False       # idempotent reruns: skip done outputs
+    trace_dir: str = ""               # torch.profiler trace + spans.json (off if "")
 
 
 @dataclass
@@ -166,7 +167,7 @@ class FedConfig:
     list_root: str = ""
     save_path: str = "checkpoints"
     log_path: str = "logs"
-    trace_dir: str = ""               # jax.profiler trace output (off if "")
+    trace_dir: str = ""               # torch.profiler trace + spans.json (off if "")
     save_freq: int = 10
     resume: bool = False
     test_only: bool = False

@@ -22,6 +22,9 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ccst_tpu_torch.utils import profiling
+from ccst_tpu_torch.utils.profiling import span
+
 try:
     from PIL import Image
 except ImportError:  # pragma: no cover
@@ -190,7 +193,9 @@ class ImageBatchLoader:
                             chunk = order[start : start + self.batch_size]
                             if len(chunk) < self.batch_size and self.drop_last:
                                 continue
-                            q.put(self._assemble(pool, chunk))
+                            with span("loader.decode"):
+                                batch = self._assemble(pool, chunk)
+                            q.put(batch)
                         if not self.loop:
                             q.put(_SENTINEL)
                             return
@@ -201,11 +206,16 @@ class ImageBatchLoader:
         thread.start()
         try:
             while True:
+                traced = profiling.active()
+                depth = q.qsize() if traced else 0
                 item = q.get()
                 if item is _SENTINEL:
                     return
                 if isinstance(item, BaseException):
                     raise item
+                if traced:
+                    profiling.count("loader.gets")
+                    profiling.count("loader.queue_depth", depth)
                 yield item
         finally:
             stop.set()

@@ -58,6 +58,8 @@ from ccst_tpu_torch.models.classifiers import get_network, init_weights
 from ccst_tpu_torch.models.convert_resnet import from_jax
 from ccst_tpu_torch.utils.checkpoint import checkpoint_paths, load_checkpoint, save_checkpoint
 from ccst_tpu_torch.utils.metrics import MetricsLogger
+from ccst_tpu_torch.utils import profiling
+from ccst_tpu_torch.utils.profiling import span
 from ccst_tpu_torch.utils.precision import no_tf32
 
 State = Dict[str, torch.Tensor]
@@ -152,6 +154,7 @@ class FederatedRunner:
         self.start_round = 0
         self.best: Dict[str, Any] = {"val_acc_mean": -1.0, "round": -1, "test_acc": None}
         self.trace_dir = cfg.trace_dir or None
+        self.eval_loader_wait_seconds = 0.0  # evaluate()'s loader waits, reset a round
 
     def make_step(self, model: torch.nn.Module, **kw):
         """The configured local step of ``model`` (``train_ops.make_train_step``)."""
@@ -183,23 +186,27 @@ class FederatedRunner:
                            ) -> Tuple[State, Dict[str, float]]:
         """One local epoch; the metrics stay on the device until its end.
         ``loader_wait_seconds`` is the host's time blocked on the loader."""
-        metrics = []
-        wait = 0.0
-        batches = iter(self.clients[ci].train)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            wait += time.perf_counter() - t0
-            if batch is None:
-                break
-            bd = self.batch_dict(batch)
-            if self.amp_bank is not None:
-                bd["amp_bank"] = self.amp_bank
-            state, m = self._train_step(state, self.server, bd, generator, len(metrics))
-            metrics.append(torch.stack([m.loss, m.correct, m.count]))
-        n_steps = len(metrics)
-        loss_sum, correct, count = (torch.stack(metrics).double().sum(0).tolist()
-                                    if metrics else (0.0, 0.0, 0.0))
+        with span("fed.client_epoch"):
+            metrics = []
+            wait = 0.0
+            batches = iter(self.clients[ci].train)
+            while True:
+                t0 = time.perf_counter()
+                with span("fed.loader_wait"):
+                    batch = next(batches, None)
+                wait += time.perf_counter() - t0
+                if batch is None:
+                    break
+                with span("fed.h2d"):
+                    bd = self.batch_dict(batch)
+                if self.amp_bank is not None:
+                    bd["amp_bank"] = self.amp_bank
+                with span("fed.step"):
+                    state, m = self._train_step(state, self.server, bd, generator, len(metrics))
+                metrics.append(torch.stack([m.loss, m.correct, m.count]))
+            n_steps = len(metrics)
+            loss_sum, correct, count = (torch.stack(metrics).double().sum(0).tolist()
+                                        if metrics else (0.0, 0.0, 0.0))
         return state, {"train_loss": loss_sum / max(n_steps, 1),
                        "train_acc": correct / max(count, 1.0),
                        "loader_wait_seconds": wait}
@@ -236,11 +243,22 @@ class FederatedRunner:
 
     def evaluate(self, state: State, loader: ImageBatchLoader) -> Tuple[float, float]:
         """(mean loss, accuracy): ``test()`` (fed_run.py:214-259), one wait for
-        the device at the end."""
-        sums = [torch.stack(self._eval_step(state, self.batch_dict(b))) for b in loader]
-        if not sums:
-            return 0.0, 0.0
-        loss_sum, correct, count = torch.stack(sums).double().sum(0).tolist()
+        the device at the end. Adds the host's time blocked on ``loader`` to
+        ``eval_loader_wait_seconds``."""
+        with span("fed.evaluate"):
+            sums = []
+            batches = iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                with span("fed.eval_loader_wait"):
+                    b = next(batches, None)
+                self.eval_loader_wait_seconds += time.perf_counter() - t0
+                if b is None:
+                    break
+                sums.append(torch.stack(self._eval_step(state, self.batch_dict(b))))
+            if not sums:
+                return 0.0, 0.0
+            loss_sum, correct, count = torch.stack(sums).double().sum(0).tolist()
         if count == 0:
             return 0.0, 0.0
         return loss_sum / count, correct / count
@@ -277,7 +295,11 @@ class FederatedRunner:
                                    "best": dict(self.best)}
         if self.cfg.mode.lower() == "fedbn":
             payload["clients"] = [_to_cpu(c) for c in self.client_states]
-        save_checkpoint(self.ckpt["best" if best else "latest"], payload)
+        path = self.ckpt["best" if best else "latest"]
+        with span("fed.save"):
+            save_checkpoint(path, payload)
+        if profiling.active():
+            profiling.count("fed.save_bytes", os.path.getsize(path))
 
     # ------------------------------------------------------------------
     # round loop
@@ -298,7 +320,9 @@ class FederatedRunner:
                     ci, self.client_states[ci], gen)
                 train_metrics[self.clients[ci].name] = m
         wait = sum(m["loader_wait_seconds"] for m in train_metrics.values())
-        self.server, self.client_states = aggregate(cfg.mode, self.client_states, self.weights)
+        with span("fed.aggregate"):
+            self.server, self.client_states = aggregate(cfg.mode, self.client_states,
+                                                        self.weights)
         return train_metrics, wait
 
     def evaluate_round(self) -> Tuple[float, float]:
@@ -314,6 +338,7 @@ class FederatedRunner:
         cfg = self.cfg
         t0 = time.perf_counter()
         train_metrics, wait = self.train_round(round_idx)
+        self.eval_loader_wait_seconds = 0.0
         val_acc_mean, test_acc = self.evaluate_round()
         record = {
             "round": round_idx,
@@ -321,6 +346,7 @@ class FederatedRunner:
             "test_acc": test_acc,
             "seconds": time.perf_counter() - t0,
             "loader_wait_seconds": wait,
+            "eval_loader_wait_seconds": self.eval_loader_wait_seconds,
             **{f"train_acc/{k}": v["train_acc"] for k, v in train_metrics.items()},
             **{f"train_loss/{k}": v["train_loss"] for k, v in train_metrics.items()},
         }

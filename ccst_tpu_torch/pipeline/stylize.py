@@ -61,6 +61,8 @@ from ccst_tpu_torch.models import vgg, vgg_fast
 # the antialiased bilinear resize of output_size (jax.image.resize parity)
 from ccst_tpu_torch.ops.image import resize_square as resize_bilinear
 from ccst_tpu_torch.pipeline.style_bank import load_style_stats
+from ccst_tpu_torch.utils import profiling
+from ccst_tpu_torch.utils.profiling import span
 
 INT8_ENGINES = ("int8-static", "int8-fused")  # calibrated static scales
 ENGINES = ("ref", "packed", "int8", *INT8_ENGINES)
@@ -148,7 +150,11 @@ class StylizeEngine:
     def _as_input(self, images) -> torch.Tensor:
         # uint8 transport: the same integer bytes / 255 in float32 as the
         # loader's float batches, normalized on the device
-        images = torch.as_tensor(images).to(self.device)
+        images = torch.as_tensor(images)
+        if profiling.active():
+            profiling.count("stylize.h2d_bytes", images.nbytes)
+        with span("stylize.h2d"):
+            images = images.to(self.device)
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
         return images.to(self.dtype)
@@ -164,8 +170,12 @@ class StylizeEngine:
         return out
 
     def _restyle(self, feat, s_mean, s_std, alpha: float) -> torch.Tensor:
-        t = fused_adain(feat, s_mean, s_std, alpha=alpha)
-        return self._finish(self._decode(t))
+        with span("stylize.adain"):
+            t = fused_adain(feat, s_mean, s_std, alpha=alpha)
+        with span("stylize.decode"):
+            t = self._decode(t)
+        with span("stylize.finish"):
+            return self._finish(t)
 
     def _stats(self, s) -> torch.Tensor:
         return torch.as_tensor(s, dtype=torch.float32).to(self.device)
@@ -176,7 +186,9 @@ class StylizeEngine:
         float32 unclamped (uint8 with ``output_u8``)."""
         s_mean, s_std = self._stats(s_mean), self._stats(s_std)
         self._ensure_calibrated(images, s_mean[None], s_std[None])
-        feat = self._encode(self._as_input(images))
+        feat = self._as_input(images)
+        with span("stylize.encode"):
+            feat = self._encode(feat)  # rebinding frees the input batch once encoded
         return self._restyle(feat, s_mean, s_std, alpha)
 
     @torch.no_grad()
@@ -185,9 +197,21 @@ class StylizeEngine:
         encode, one AdaIN launch for the S banks, S decodes."""
         s_means, s_stds = self._stats(s_means), self._stats(s_stds)
         self._ensure_calibrated(images, s_means, s_stds)
-        feat = self._encode(self._as_input(images))
-        restyled = fused_adain_multi(feat, s_means, s_stds, alpha=alpha)
-        return torch.stack([self._finish(self._decode(t)) for t in restyled])
+        feat = self._as_input(images)
+        with span("stylize.encode"):
+            feat = self._encode(feat)
+        with span("stylize.adain"):
+            restyled = fused_adain_multi(feat, s_means, s_stds, alpha=alpha)
+        outs = []
+        for t in restyled:
+            # rebinding ``t`` frees each decoded batch once it is finished
+            with span("stylize.decode"):
+                t = self._decode(t)
+            with span("stylize.finish"):
+                t = self._finish(t)
+            outs.append(t)
+        with span("stylize.finish"):
+            return torch.stack(outs)
 
     @torch.no_grad()
     def style_stats_of(self, image) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -197,9 +221,10 @@ class StylizeEngine:
         them through the ``ref`` encoder, as ``ccst_tpu``'s engine does."""
         if self.enc is None:  # the other engines prepare it on first use
             self.enc = vgg.prepare_params(self._enc_w, self.dtype, self.device)
-        feat = vgg.apply_encoder(self.enc, self._as_input(image))
-        mean, m2, count = channel_moments(feat[:1])
-        return mean, torch.sqrt(m2 / count + 1e-5)
+        with span("stylize.style_stats"):
+            feat = vgg.apply_encoder(self.enc, self._as_input(image))
+            mean, m2, count = channel_moments(feat[:1])
+            return mean, torch.sqrt(m2 / count + 1e-5)
 
 
 def bank_path_for(cfg: StylizeConfig, style: str) -> str:
@@ -303,7 +328,12 @@ class _DispatchAhead:
     """One-slot dispatch-ahead: the device->host copy of batch N runs only
     after batch N+1 has been launched, so the card computes N+1 while the host
     copies and encodes N. ``fetch_seconds`` is the time the loop sat in those
-    copies, less the encode backpressure the emit callback reports."""
+    copies, less the encode backpressure the emit callback reports.
+
+    While a profiler is active the flush is three spans: ``dispatch.wait``
+    (an event recorded on the stream just before the copy, then waited on:
+    the host blocked on the card's queued kernels), ``dispatch.d2h`` (the
+    copy alone) and ``dispatch.emit`` (the callback)."""
 
     def __init__(self) -> None:
         self._pending = None   # (device tensor, emit callback)
@@ -322,8 +352,24 @@ class _DispatchAhead:
     def _flush(self, p) -> None:
         t1 = time.perf_counter()
         outs_device, emit = p
-        backpressure = emit(outs_device.cpu().numpy()) or 0.0
+        if profiling.active():
+            backpressure = self._flush_spanned(outs_device, emit)
+        else:
+            backpressure = emit(outs_device.cpu().numpy()) or 0.0
         self.fetch_seconds += time.perf_counter() - t1 - backpressure
+
+    @staticmethod
+    def _flush_spanned(outs_device: torch.Tensor, emit) -> float:
+        with span("dispatch.wait"):
+            if outs_device.is_cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(outs_device.device))
+                done.synchronize()
+        with span("dispatch.d2h"):
+            outs = outs_device.cpu().numpy()
+        profiling.count("dispatch.d2h_bytes", outs.nbytes)
+        with span("dispatch.emit"):
+            return emit(outs) or 0.0
 
 
 def _style_lists(cfg: StylizeConfig, styles: Sequence[str]) -> Dict[str, List[str]]:
@@ -346,10 +392,11 @@ def _run_transfer(cfg: StylizeConfig, engine: StylizeEngine, mode: str) -> Trans
     spec = dataset_spec(cfg.dataset)
     styles = [d for d in spec.domains if d != cfg.target]
     loader, rel_names = _content_loader(cfg)
-    if mode.lower() == "single" or cfg.skip_existing:
-        report = _run_style_major(cfg, engine, mode, styles, loader, rel_names)
-    else:
-        report = _run_batch_major(cfg, engine, mode, styles, loader, rel_names)
+    with profiling.maybe_trace(cfg.trace_dir):
+        if mode.lower() == "single" or cfg.skip_existing:
+            report = _run_style_major(cfg, engine, mode, styles, loader, rel_names)
+        else:
+            report = _run_batch_major(cfg, engine, mode, styles, loader, rel_names)
     _write_timing(cfg, mode, report)
     return report
 
@@ -371,7 +418,8 @@ def _run_batch_major(cfg, engine, mode, styles, loader, rel_names) -> TransferRe
         first = True
         while True:
             t1 = time.perf_counter()
-            batch = next(it, None)
+            with span("stylize.loader_wait"):
+                batch = next(it, None)
             dt = time.perf_counter() - t1
             if first:
                 t_first, first = dt, False
@@ -456,7 +504,8 @@ def _run_style_major(cfg, engine, mode, styles, loader, rel_names) -> TransferRe
                 image's decode started on the pool: one draw a batch, in batch
                 order, so the choices are those of a loop without prefetch."""
                 t1 = time.perf_counter()
-                b = next(it, None)
+                with span("stylize.loader_wait"):
+                    b = next(it, None)
                 dt = time.perf_counter() - t1
                 sf = None
                 if b is not None and single:
