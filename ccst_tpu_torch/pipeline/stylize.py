@@ -33,11 +33,14 @@ per content batch ("single" mode, seeded like the reference).
   - ``output_size > 0`` resizes the float32 outputs (antialiased bilinear,
     :func:`resize_bilinear`) before the uint8 quantization.
   - The transfer loop decodes each content batch once (uint8 transport,
-    normalized on the device), launches batch N+1 before it copies batch N's
-    uint8 output to the host, and encodes the images on a thread pool. Overall
-    mode without ``skip_existing`` restyles each batch under every bank at
-    once; single mode and ``skip_existing`` run style by style, as
-    ``ccst_tpu`` does, the latter over the outputs that do not exist yet.
+    normalized on the device), launches batch N+1 before it hands batch N's
+    uint8 output to the host (on the card both copies go through pinned
+    memory in stream order, the output's on a copy stream of its own, so the
+    host never waits for the compute stream to drain), and encodes the
+    images on a thread pool. Overall mode without ``skip_existing`` restyles
+    each batch under every bank at once; single mode and ``skip_existing``
+    run style by style, as ``ccst_tpu`` does, the latter over the outputs
+    that do not exist yet.
 """
 from __future__ import annotations
 
@@ -154,7 +157,18 @@ class StylizeEngine:
         if profiling.active():
             profiling.count("stylize.h2d_bytes", images.nbytes)
         with span("stylize.h2d"):
-            images = images.to(self.device)
+            if (self.device.type == "cuda" and images.device.type == "cpu"
+                    and not images.is_pinned()):
+                # a pageable copy would wait for the stream to drain: stage
+                # through a pinned tensor of the host allocator's cache (its
+                # block is not reused before the copy has run), then copy
+                # in stream order without blocking the host
+                staged = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
+                staged.copy_(images)
+                images = staged.to(self.device, non_blocking=True)
+                profiling.count("stylize.h2d_staged")
+            else:
+                images = images.to(self.device)
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
         return images.to(self.dtype)
@@ -324,22 +338,63 @@ def _writeback(
     return time.perf_counter() - t1
 
 
+class _PinnedCopy:
+    """A CUDA tensor's copy into a new pinned host tensor, on ``stream``
+    behind the kernels queued so far on the tensor's current stream. The
+    source stays referenced until :meth:`result` has seen the copy land, so
+    the device allocator cannot hand its memory out under the copy."""
+
+    def __init__(self, src: torch.Tensor, stream: torch.cuda.Stream):
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(src.device))
+        stream.wait_event(ready)
+        # a new block of the host allocator's cache each time: the arrays
+        # handed to ``emit`` are the callers' to keep
+        self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        with torch.cuda.stream(stream):
+            self.host.copy_(src, non_blocking=True)
+        self.landed = torch.cuda.Event()
+        self.landed.record(stream)
+        self.src = src
+
+    def result(self) -> np.ndarray:
+        self.landed.synchronize()
+        self.src = None
+        return self.host.numpy()
+
+
 class _DispatchAhead:
-    """One-slot dispatch-ahead: the device->host copy of batch N runs only
-    after batch N+1 has been launched, so the card computes N+1 while the host
+    """One-slot dispatch-ahead: batch N reaches the host callback only after
+    batch N+1 has been launched, so the card computes N+1 while the host
     copies and encodes N. ``fetch_seconds`` is the time the loop sat in those
     copies, less the encode backpressure the emit callback reports.
 
-    While a profiler is active the flush is three spans: ``dispatch.wait``
-    (an event recorded on the stream just before the copy, then waited on:
-    the host blocked on the card's queued kernels), ``dispatch.d2h`` (the
-    copy alone) and ``dispatch.emit`` (the callback)."""
+    A CUDA batch is copied as it is pushed: on a copy stream of this object's
+    own, behind an event on the compute stream, into new pinned host memory
+    (:class:`_PinnedCopy`); its flush waits for that copy to land, so the copy
+    of N runs on the copy engine under N+1's kernels and the host never waits
+    for the compute stream to drain. Any other batch is copied at its flush.
+
+    While a profiler is active, ``dispatch.d2h`` spans the copy (on the CUDA
+    route its enqueue in :meth:`push`), ``dispatch.wait`` the host's wait in
+    the flush (on the CUDA route for the landed copy: the card's queued
+    kernels and the copy behind them) and ``dispatch.emit`` the callback;
+    ``dispatch.async_d2h`` counts the flushes of CUDA-route copies."""
 
     def __init__(self) -> None:
-        self._pending = None   # (device tensor, emit callback)
+        self._pending = None   # (_PinnedCopy or tensor, emit callback)
+        self._stream = None    # the copy stream, made on the first CUDA batch
         self.fetch_seconds = 0.0
 
     def push(self, outs_device: torch.Tensor, emit) -> None:
+        if outs_device.is_cuda:
+            t1 = time.perf_counter()
+            if self._stream is None or self._stream.device != outs_device.device:
+                self._stream = torch.cuda.Stream(outs_device.device)
+            with span("dispatch.d2h"):
+                outs_device = _PinnedCopy(outs_device, self._stream)
+            profiling.count("dispatch.d2h_bytes", outs_device.host.nbytes)
+            self.fetch_seconds += time.perf_counter() - t1
         prev, self._pending = self._pending, (outs_device, emit)
         if prev is not None:
             self._flush(prev)
@@ -351,25 +406,18 @@ class _DispatchAhead:
 
     def _flush(self, p) -> None:
         t1 = time.perf_counter()
-        outs_device, emit = p
-        if profiling.active():
-            backpressure = self._flush_spanned(outs_device, emit)
-        else:
-            backpressure = emit(outs_device.cpu().numpy()) or 0.0
-        self.fetch_seconds += time.perf_counter() - t1 - backpressure
-
-    @staticmethod
-    def _flush_spanned(outs_device: torch.Tensor, emit) -> float:
+        outs, emit = p
         with span("dispatch.wait"):
-            if outs_device.is_cuda:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(outs_device.device))
-                done.synchronize()
-        with span("dispatch.d2h"):
-            outs = outs_device.cpu().numpy()
-        profiling.count("dispatch.d2h_bytes", outs.nbytes)
+            if isinstance(outs, _PinnedCopy):
+                outs = outs.result()
+                profiling.count("dispatch.async_d2h")
+        if isinstance(outs, torch.Tensor):
+            with span("dispatch.d2h"):
+                outs = outs.cpu().numpy()
+            profiling.count("dispatch.d2h_bytes", outs.nbytes)
         with span("dispatch.emit"):
-            return emit(outs) or 0.0
+            backpressure = emit(outs) or 0.0
+        self.fetch_seconds += time.perf_counter() - t1 - backpressure
 
 
 def _style_lists(cfg: StylizeConfig, styles: Sequence[str]) -> Dict[str, List[str]]:
