@@ -11,6 +11,11 @@ flags and defaults; every subcommand also takes ``--device`` (default
   ccst-tpu-torch stylize    --dataset pacs --target photo --mode overall|single \
                             --engine ref|packed|int8|int8-static|int8-fused \
                             [--skip-existing] [--output-size 96] [--trace-dir DIR] ...
+
+``style-bank --model wct`` writes WCT's second-order banks
+(``{domain}_wct.npz``) and ``stylize --model wct --mode overall --engine ref``
+stylizes with them through the five-level cascade (``pipeline/wct.py``; its
+``--decoder-weights`` is one ``.npz`` of the five decoders).
   ccst-tpu-torch reorganize --dataset pacs --target photo --list-root $DATA ...
   ccst-tpu-torch gen-lists  --dataset pacs --target photo --k 3 --list-root $DATA
   ccst-tpu-torch amp-bank   --dataset pacs --domain cartoon --list-root $DATA
@@ -111,6 +116,30 @@ def _load_engine_params(args):
     return enc, dec
 
 
+def _load_wct_params(args):
+    """WCT's encoder (VGG-19 on to conv5_1, from ``--vgg-weights``) and its
+    five decoders (one ``.npz``, ``pipeline/wct.py::save_decoders``)."""
+    from ccst_tpu_torch.models import vgg
+    from ccst_tpu_torch.models.convert import load_weights
+    from ccst_tpu_torch.pipeline import wct
+
+    if args.vgg_weights:
+        enc = load_weights(args.vgg_weights, vgg.WCT_ENCODER_ARCH)
+        missing = [l.name for l in vgg.WCT_ENCODER_ARCH
+                   if isinstance(l, vgg.Conv) and l.name not in enc]
+        if missing:
+            raise SystemExit(f"{args.vgg_weights} lacks WCT's encoder layers {missing}")
+    else:
+        print("[warn] no --vgg-weights given; using random encoder init")
+        enc = vgg.init_params(vgg.WCT_ENCODER_ARCH, torch.Generator().manual_seed(0))
+    if args.decoder_weights:
+        decs = wct.load_decoders(args.decoder_weights)
+    else:
+        print("[warn] no --decoder-weights given; using random decoder init")
+        decs = wct.init_decoders(torch.Generator().manual_seed(1))
+    return enc, decs
+
+
 def _env_int(name: str) -> int:
     raw = os.environ.get(name, "").strip()
     if not raw:
@@ -146,8 +175,17 @@ def cmd_style_bank(args) -> int:
     from ccst_tpu_torch.pipeline.style_bank import compute_style_bank
 
     cfg = _dataclass_from_args(StylizeConfig, args)
-    enc, _ = _load_engine_params(args)
     domains = [args.domain] if args.domain else list(dataset_spec(cfg.dataset).domains)
+    if args.model == "wct":
+        from ccst_tpu_torch.pipeline.style_bank import compute_wct_bank
+
+        enc, _ = _load_wct_params(args)
+        for domain in domains:
+            bank = compute_wct_bank(cfg, domain, enc, device=args.device)
+            print(f"{domain}: WCT bank trace of cov by level = " + ", ".join(
+                f"{lv} {float(bank.cov[lv].trace()):.3f}" for lv in bank.cov))
+        return 0
+    enc, _ = _load_engine_params(args)
     for domain in domains:
         mean, std = compute_style_bank(cfg, domain, encoder_params=enc, device=args.device)
         print(f"{domain}: bank mean|std norms = {np.linalg.norm(mean):.3f} | "
@@ -213,13 +251,23 @@ def cmd_stylize(args) -> int:
     )
 
     cfg = _dataclass_from_args(StylizeConfig, args)
-    enc, dec = _load_engine_params(args)
-    engine = StylizeEngine(
-        enc, dec, dtype=torch_dtype(cfg.dtype), device=args.device,
-        output_size=cfg.output_size,
-        output_u8=True,  # quantize on the device: 4x less device->host traffic
-        engine=cfg.engine, scales=_load_scales_for(cfg, enc, dec),
-    )
+    if args.model == "wct":
+        from ccst_tpu_torch.pipeline.wct import WCTEngine
+
+        if cfg.engine != "ref" or cfg.mode.lower() != "overall" or cfg.skip_existing:
+            raise SystemExit("--model wct runs --engine ref --mode overall without "
+                             "--skip-existing (its int8 engines and Single mode are later work)")
+        enc, decs = _load_wct_params(args)
+        engine = WCTEngine(enc, decs, dtype=torch_dtype(cfg.dtype), device=args.device,
+                           output_size=cfg.output_size, output_u8=True)
+    else:
+        enc, dec = _load_engine_params(args)
+        engine = StylizeEngine(
+            enc, dec, dtype=torch_dtype(cfg.dtype), device=args.device,
+            output_size=cfg.output_size,
+            output_u8=True,  # quantize on the device: 4x less device->host traffic
+            engine=cfg.engine, scales=_load_scales_for(cfg, enc, dec),
+        )
     run = run_single_transfer if cfg.mode.lower() == "single" else run_overall_transfer
     report = run(cfg, engine)
     print(
@@ -533,6 +581,10 @@ def main(argv: Optional[list] = None) -> int:
     p = sub.add_parser("stylize", help="cross-client style transfer")
     _add_dataclass_args(p, StylizeConfig)
     p.set_defaults(fn=cmd_stylize)
+    for name in ("style-bank", "stylize"):
+        sub.choices[name].add_argument(
+            "--model", default="adain", choices=["adain", "wct"],
+            help="AdaIN (relu4_1 mean/std banks) or WCT (five levels, second-order banks)")
 
     p = sub.add_parser("calibrate", help="write int8-static calibration scales")
     _add_dataclass_args(p, StylizeConfig, skip=("trace_dir",))

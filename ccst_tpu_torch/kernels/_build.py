@@ -7,6 +7,10 @@ built at first use, named by a hash of the sources, the headers and the flags,
 under ``ccst_tpu_torch/_build/`` (listed in ``.gitignore``); a later call in the
 same checkout reuses it. Only sources in this repository and the CUDA toolkit
 are used. A failed build raises with the compiler's output.
+
+WCT's kernels (``csrc/wct/``) are a library of their own, ``library("wct")``:
+built and loaded only by a run that stylizes with WCT, so that they cost the
+AdaIN paths nothing.
 """
 from __future__ import annotations
 
@@ -53,9 +57,16 @@ SIGNATURES = {
     # xp, wp, k, kb, y, N, Hb, Wb, Cout, cat, stream
     "ccst_pool_conv_s8": [_P] * 5 + [_I] * 5 + [_P],
 }
+WCT_SIGNATURES = {
+    # x, mean, hi, lo, B, P, C, is_f32, stream
+    "ccst_wct_centre_split": [_P] * 4 + [_L] * 2 + [_I] * 2 + [_P],
+}
+# library -> its C entry points; a part's sources are csrc/<part>/, the main
+# library's csrc/ itself
+PARTS = {"": SIGNATURES, "wct": WCT_SIGNATURES}
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -69,17 +80,23 @@ def _nvcc() -> str:
     return path
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
+def _folder(part: str) -> Path:
+    return CSRC / part if part else CSRC
 
 
-def library_path() -> Path:
+def _sources(part: str = ""):
+    return sorted(_folder(part).glob("*.cu"))
+
+
+def library_path(part: str = "") -> Path:
     """Path of the library for the current sources (built or not)."""
+    folder = _folder(part)
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+    for src in sorted([*folder.glob("*.cu"), *folder.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libccst_kernels_{digest.hexdigest()[:16]}.so"
+    name = f"ccst_{part}_kernels" if part else "ccst_kernels"
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds):
@@ -95,30 +112,31 @@ def _run_all(cmds):
         raise RuntimeError("\n".join(failed))
 
 
-def _compile(out: Path) -> None:
+def _compile(out: Path, part: str = "") -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    sources = _sources(part)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-                  for src, obj in zip(_sources(), objs)])
+                  for src, obj in zip(sources, objs)])
         tmp = os.path.join(tmpdir, out.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, compiling it first if needed."""
-    global _lib
+def library(part: str = "") -> ctypes.CDLL:
+    """The loaded kernel library (``part`` names one of :data:`PARTS`),
+    compiling it first if needed."""
     with _lock:
-        if _lib is None:
-            path = library_path()
+        if part not in _libs:
+            path = library_path(part)
             if not path.exists():
-                _compile(path)
+                _compile(path, part)
             lib = ctypes.CDLL(str(path))
-            for name, argtypes in SIGNATURES.items():
+            for name, argtypes in PARTS[part].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[part] = lib
+        return _libs[part]

@@ -1,4 +1,6 @@
-"""VGG-19 (normalised) encoder through relu4_1 and its mirror decoder, NHWC.
+"""VGG-19 (normalised) encoder through relu4_1 and its mirror decoder, NHWC;
+for WCT, the encoder on to relu5_1 and a mirror decoder for each of its five
+levels.
 
 Port of ``ccst_tpu/models/vgg.py`` (reference style_transfer/AdaIN/net.py:6-92).
 The architecture is the same declarative spec, interpreted by one apply loop
@@ -95,6 +97,35 @@ DECODER_ARCH: Tuple = (
     Conv("dconv1_2", 64, 64),
     Conv("dconv1_1", 64, 3, relu=False),
 )
+
+
+# WCT (Li et al., arXiv:1705.08086; the encoders and decoders of PytorchWCT):
+# the same normalised VGG-19 on to relu5_1, tapped at each level, and one
+# mirror decoder a level, coarse to fine. The relu4_1 decoder is DECODER_ARCH;
+# the finer ones are its tails, the relu5_1 decoder adds conv5_1's and
+# conv4_2..4_4's mirrors before it.
+WCT_LEVELS = ("relu5_1", "relu4_1", "relu3_1", "relu2_1", "relu1_1")
+WCT_ENCODER_ARCH: Tuple = ENCODER_ARCH + (
+    Conv("conv4_2", 512, 512),
+    Conv("conv4_3", 512, 512),
+    Conv("conv4_4", 512, 512),
+    Pool(),
+    Conv("conv5_1", 512, 512), Tap("relu5_1"),
+)
+
+
+def _tail(arch: Tuple, first: str) -> Tuple:
+    return arch[next(i for i, l in enumerate(arch) if getattr(l, "name", "") == first):]
+
+
+WCT_DECODER_ARCHS: Dict[str, Tuple] = {
+    "relu5_1": (Conv("dconv5_1", 512, 512), Upsample(), Conv("dconv4_4", 512, 512),
+                Conv("dconv4_3", 512, 512), Conv("dconv4_2", 512, 512)) + DECODER_ARCH,
+    "relu4_1": DECODER_ARCH,
+    "relu3_1": _tail(DECODER_ARCH, "dconv3_1"),
+    "relu2_1": _tail(DECODER_ARCH, "dconv2_1"),
+    "relu1_1": _tail(DECODER_ARCH, "dconv1_1"),
+}
 
 
 def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
@@ -256,3 +287,15 @@ def encoder_taps(params, images: torch.Tensor, route: str = "kernel") -> Dict[st
 def apply_decoder(params, feat: torch.Tensor, route: str = "kernel") -> torch.Tensor:
     """relu4_1 features -> image (N, H*8, W*8, 3); raw output, no activation."""
     return _apply(params, feat, DECODER_ARCH, route=route)[0]
+
+
+def encode_to(params, images: torch.Tensor, tap: str, taps: Sequence[str] = ()):
+    """WCT: images -> the features at ``tap`` (one of :data:`WCT_LEVELS`) on
+    the kernel route; with ``taps``, also the named finer levels, as a dict."""
+    out, collected = _apply(params, images, WCT_ENCODER_ARCH, stop_at=tap, taps=taps)
+    return (out, collected) if taps else out
+
+
+def decode_from(params, feat: torch.Tensor, tap: str) -> torch.Tensor:
+    """WCT: features at ``tap`` -> image, through that level's decoder."""
+    return _apply(params, feat, WCT_DECODER_ARCHS[tap])[0]

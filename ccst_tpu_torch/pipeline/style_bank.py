@@ -8,13 +8,19 @@ Welford state (reference style_transfer/AdaIN/mean_std_computation_effcientMem.p
 leave it. The bank is written in the reference ``.npy`` layout
 ``[mean(1,C,1,1), std(1,C,1,1)]`` and the native ``.npz``, byte for byte as
 ``ccst_tpu`` writes them, so banks from either package feed the other.
+
+WCT's second-order bank (``--model wct``; ``ccst_tpu`` has none): for each of
+the five levels ``vgg.WCT_LEVELS``, the mean and covariance of every position
+of every image of the domain, summed in float64 on the device over the
+batches, and the colouring matrix ``S^1/2`` worked out once from the
+covariance (``ops/wct.py::colour_of``). Written as ``{domain}_wct.npz``.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Callable, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -131,3 +137,119 @@ def load_style_stats(path: str) -> Tuple[np.ndarray, np.ndarray]:
         np.asarray(arr[0], np.float32).reshape(-1),
         np.asarray(arr[1], np.float32).reshape(-1),
     )
+
+
+# ---------------------------------------------------------------------------
+# WCT's second-order bank
+# ---------------------------------------------------------------------------
+
+
+class WCTBank(NamedTuple):
+    """One domain's WCT bank, by level: ``mean`` (C,) float32, ``cov`` (C, C)
+    and ``colour`` ``S^1/2`` (C, C) float64, ``count`` positions."""
+
+    mean: Dict[str, torch.Tensor]
+    cov: Dict[str, torch.Tensor]
+    colour: Dict[str, torch.Tensor]
+    count: Dict[str, int]
+
+
+WCTSums = Dict[str, Tuple[int, torch.Tensor, torch.Tensor]]  # level -> (n, sum x, sum x x^T)
+
+
+def wct_bank_init() -> WCTSums:
+    return {}
+
+
+def wct_bank_update(sums: WCTSums, taps: Dict[str, torch.Tensor]) -> WCTSums:
+    """Fold one batch's features (level -> (N, H, W, C)) into the float64
+    sums, an image at a time (bounding the float64 copy of a relu1_1 map)."""
+    out = dict(sums)
+    for level, feat in taps.items():
+        c = feat.shape[-1]
+        n, s1, s2 = out.get(level, (0, None, None))
+        if s1 is None:
+            s1 = torch.zeros(c, dtype=torch.float64, device=feat.device)
+            s2 = torch.zeros(c, c, dtype=torch.float64, device=feat.device)
+        for img in feat:
+            x = img.reshape(-1, c).double()
+            s1 = s1 + x.sum(dim=0)
+            s2 = torch.addmm(s2, x.T, x)
+            n += x.shape[0]
+        out[level] = (n, s1, s2)
+    return out
+
+
+def wct_bank_finalize(sums: WCTSums) -> WCTBank:
+    """Mean, covariance (divisor n - 1, as PytorchWCT's) and ``S^1/2``."""
+    from ccst_tpu_torch.ops.wct import colour_of
+
+    bank = WCTBank({}, {}, {}, {})
+    for level, (n, s1, s2) in sums.items():
+        mean = s1 / n
+        cov = (s2 - n * torch.outer(mean, mean)) / (n - 1)
+        bank.mean[level] = mean.float()
+        bank.cov[level] = cov
+        bank.colour[level] = colour_of(cov)
+        bank.count[level] = n
+    return bank
+
+
+def make_wct_bank_step(encoder_params, dtype: torch.dtype = torch.bfloat16, device="cpu"
+                       ) -> Callable[[WCTSums, torch.Tensor, int], WCTSums]:
+    """Returns ``step(sums, images, valid) -> sums``: the first ``valid`` of an
+    (N, H, W, 3) batch in [0, 1] encoded once to relu5_1, every level
+    tapped on the way."""
+    params = vgg.prepare_params(encoder_params, dtype, device)
+
+    def step(sums: WCTSums, images: torch.Tensor, valid: int) -> WCTSums:
+        images = torch.as_tensor(images)[:valid].to(device=device, dtype=dtype)
+        _, taps = vgg.encode_to(params, images, vgg.WCT_LEVELS[0], taps=vgg.WCT_LEVELS)
+        return wct_bank_update(sums, taps)
+
+    return step
+
+
+def compute_wct_bank(cfg: StylizeConfig, domain: str, encoder_params, device="cuda") -> WCTBank:
+    """Compute and persist ``domain``'s WCT bank under
+    ``{style_stats_dir}/{dataset}/{domain}_wct.npz``."""
+    names, labels = parse_list(train_list_path(cfg.list_root, cfg.dataset, domain))
+    if cfg.data_root:
+        names = [os.path.join(cfg.data_root, n) for n in names]
+    loader = ImageBatchLoader(names, labels, batch_size=cfg.batch_size,
+                              image_size=cfg.image_size, shuffle=False)
+    step = make_wct_bank_step(encoder_params, torch_dtype(cfg.dtype), device)
+    sums = wct_bank_init()
+    for batch in loader:
+        sums = step(sums, torch.from_numpy(batch.images), batch.valid)
+    bank = wct_bank_finalize(sums)
+    save_wct_bank(wct_bank_path(cfg, domain), bank)
+    return bank
+
+
+def wct_bank_path(cfg: StylizeConfig, domain: str) -> str:
+    return os.path.join(cfg.style_stats_dir, cfg.dataset.lower(), f"{domain}_wct.npz")
+
+
+def save_wct_bank(path: str, bank: WCTBank) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = {}
+    for level in bank.mean:
+        flat[f"mean.{level}"] = bank.mean[level].cpu().numpy()
+        flat[f"cov.{level}"] = bank.cov[level].cpu().numpy()
+        flat[f"colour.{level}"] = bank.colour[level].cpu().numpy()
+        flat[f"count.{level}"] = np.int64(bank.count[level])
+    np.savez(path, **flat)
+
+
+def load_wct_bank(path: str) -> WCTBank:
+    bank = WCTBank({}, {}, {}, {})
+    with np.load(path) as data:
+        for key in data.files:
+            kind, level = key.split(".", 1)
+            value = data[key]
+            if kind == "count":
+                bank.count[level] = int(value)
+            else:
+                getattr(bank, kind)[level] = torch.from_numpy(value)
+    return bank

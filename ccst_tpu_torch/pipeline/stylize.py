@@ -71,7 +71,53 @@ INT8_ENGINES = ("int8-static", "int8-fused")  # calibrated static scales
 ENGINES = ("ref", "packed", "int8", *INT8_ENGINES)
 
 
-class StylizeEngine:
+class EngineBase:
+    """What every stylize engine shares: its dtype, device and output options,
+    the input staging (:meth:`_as_input`) and the epilogue (:meth:`_finish`).
+    An engine adds ``overall_banks`` and ``stylize_multi``, which the CLI's
+    Overall transfer calls."""
+
+    def __init__(self, *, dtype: torch.dtype, device, output_size: int, output_u8: bool):
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.output_size = output_size
+        self.output_u8 = output_u8
+
+    def _as_input(self, images) -> torch.Tensor:
+        # uint8 transport: the same integer bytes / 255 in float32 as the
+        # loader's float batches, normalized on the device
+        images = torch.as_tensor(images)
+        if profiling.active():
+            profiling.count("stylize.h2d_bytes", images.nbytes)
+        with span("stylize.h2d"):
+            if (self.device.type == "cuda" and images.device.type == "cpu"
+                    and not images.is_pinned()):
+                # a pageable copy would wait for the stream to drain: stage
+                # through a pinned tensor of the host allocator's cache (its
+                # block is not reused before the copy has run), then copy
+                # in stream order without blocking the host
+                staged = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
+                staged.copy_(images)
+                images = staged.to(self.device, non_blocking=True)
+                profiling.count("stylize.h2d_staged")
+            else:
+                images = images.to(self.device)
+        if images.dtype == torch.uint8:
+            images = images.float() / 255.0
+        return images.to(self.dtype)
+
+    def _finish(self, out: torch.Tensor) -> torch.Tensor:
+        out = out.float()
+        if self.output_size > 0:
+            out = resize_bilinear(out, self.output_size)
+        if self.output_u8:
+            # save_image quantization on the device: clamp, x255, +0.5, truncate
+            out = torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5
+            out = torch.clamp(out, 0.0, 255.0).to(torch.uint8)
+        return out
+
+
+class StylizeEngine(EngineBase):
     """AdaIN stylization on one device; weights cast once to ``dtype``.
     ``engine`` is one of :data:`ENGINES`; ``scales`` is a persisted int8
     calibration (``models/vgg_fast.py::load_scales``)."""
@@ -90,11 +136,9 @@ class StylizeEngine:
     ):
         if engine not in ENGINES:
             raise ValueError(f"unknown stylize engine {engine!r}")
-        self.dtype = dtype
-        self.device = torch.device(device)
+        super().__init__(dtype=dtype, device=device, output_size=output_size,
+                         output_u8=output_u8)
         self.engine = engine
-        self.output_size = output_size
-        self.output_u8 = output_u8
         self.scales = scales
         self._needs_calibration = engine in INT8_ENGINES and scales is None
         if engine == "ref":
@@ -150,39 +194,6 @@ class StylizeEngine:
         if self._needs_calibration:
             self.calibrate(images, list(zip(s_means, s_stds)))
 
-    def _as_input(self, images) -> torch.Tensor:
-        # uint8 transport: the same integer bytes / 255 in float32 as the
-        # loader's float batches, normalized on the device
-        images = torch.as_tensor(images)
-        if profiling.active():
-            profiling.count("stylize.h2d_bytes", images.nbytes)
-        with span("stylize.h2d"):
-            if (self.device.type == "cuda" and images.device.type == "cpu"
-                    and not images.is_pinned()):
-                # a pageable copy would wait for the stream to drain: stage
-                # through a pinned tensor of the host allocator's cache (its
-                # block is not reused before the copy has run), then copy
-                # in stream order without blocking the host
-                staged = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
-                staged.copy_(images)
-                images = staged.to(self.device, non_blocking=True)
-                profiling.count("stylize.h2d_staged")
-            else:
-                images = images.to(self.device)
-        if images.dtype == torch.uint8:
-            images = images.float() / 255.0
-        return images.to(self.dtype)
-
-    def _finish(self, out: torch.Tensor) -> torch.Tensor:
-        out = out.float()
-        if self.output_size > 0:
-            out = resize_bilinear(out, self.output_size)
-        if self.output_u8:
-            # save_image quantization on the device: clamp, x255, +0.5, truncate
-            out = torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5
-            out = torch.clamp(out, 0.0, 255.0).to(torch.uint8)
-        return out
-
     def _restyle(self, feat, s_mean, s_std, alpha: float) -> torch.Tensor:
         with span("stylize.adain"):
             t = fused_adain(feat, s_mean, s_std, alpha=alpha)
@@ -193,6 +204,13 @@ class StylizeEngine:
 
     def _stats(self, s) -> torch.Tensor:
         return torch.as_tensor(s, dtype=torch.float32).to(self.device)
+
+    def overall_banks(self, cfg: StylizeConfig, styles: Sequence[str]) -> Tuple:
+        """The style arguments of :meth:`stylize_multi` for ``styles``' banks
+        on disk: (means, stds), (S, C) on the device."""
+        bank = [load_style_stats(bank_path_for(cfg, style)) for style in styles]
+        return (self._stats(np.stack([m for m, _ in bank])),
+                self._stats(np.stack([s for _, s in bank])))
 
     @torch.no_grad()
     def stylize(self, images, s_mean, s_std, alpha: float = 1.0) -> torch.Tensor:
@@ -436,7 +454,7 @@ def _style_lists(cfg: StylizeConfig, styles: Sequence[str]) -> Dict[str, List[st
     return out
 
 
-def _run_transfer(cfg: StylizeConfig, engine: StylizeEngine, mode: str) -> TransferReport:
+def _run_transfer(cfg: StylizeConfig, engine: EngineBase, mode: str) -> TransferReport:
     spec = dataset_spec(cfg.dataset)
     styles = [d for d in spec.domains if d != cfg.target]
     loader, rel_names = _content_loader(cfg)
@@ -454,9 +472,7 @@ def _run_batch_major(cfg, engine, mode, styles, loader, rel_names) -> TransferRe
     it under every style bank in one ``stylize_multi``."""
     t0 = time.perf_counter()
     n_done = 0
-    bank = [load_style_stats(bank_path_for(cfg, style)) for style in styles]
-    s_means = engine._stats(np.stack([m for m, _ in bank]))
-    s_stds = engine._stats(np.stack([s for _, s in bank]))
+    banks = engine.overall_banks(cfg, styles)
     with cf.ThreadPoolExecutor(8) as pool:
         offset = 0
         futs: List[cf.Future] = []
@@ -478,7 +494,7 @@ def _run_batch_major(cfg, engine, mode, styles, loader, rel_names) -> TransferRe
             # slice to the valid rows on the device so padding never crosses
             # the d2h link
             outs = engine.stylize_multi(
-                torch.from_numpy(batch.images), s_means, s_stds, cfg.alpha
+                torch.from_numpy(batch.images), *banks, cfg.alpha
             )[:, : batch.valid]
             rel = rel_names[offset : offset + batch.valid]
             offset += batch.valid
@@ -643,7 +659,7 @@ def _write_timing(cfg: StylizeConfig, mode: str, report: TransferReport) -> None
         )
 
 
-def run_overall_transfer(cfg: StylizeConfig, engine: StylizeEngine) -> TransferReport:
+def run_overall_transfer(cfg: StylizeConfig, engine: EngineBase) -> TransferReport:
     """Domain-bank ("Overall") cross-client transfer
     (CCST_OverallStyleTransfer.py:138-167)."""
     return _run_transfer(cfg, engine, "overall")

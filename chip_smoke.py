@@ -15,7 +15,8 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      (the larger of its operations over the card's dense peak and its bytes,
      each input read and each output written once, over 3.35 TB/s): K3 conv at
      every distinct shape of the ``ref`` engine at 512 px, batch 4, cuDNN's
-     bf16 conv timed beside it for comparison only, and its exact float32
+     bf16 conv timed beside it for comparison only (and at the two 512 -> 512
+     shapes only WCT launches, at batch 32), and its exact float32
      route (TF32 off everywhere, rtol = atol = 1e-4) at every shape of the
      path and three ragged ones, cuDNN's float32 conv timed beside each; a
      K3 or K0 row under 0.1 ms is also timed from a replayed CUDA graph
@@ -44,6 +45,9 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      padding at the packed level-1 shapes (bf16 and float32, cuDNN on an
      edge-padded input beside it), K0 dequantizing with k = w_scale * a_scale
      formed on the device at every shape of the int8 engine (bit for bit);
+     W1, WCT's centring pass, bit for bit in bfloat16 and float32 at the
+     five levels' shapes of the benchmark's WCT cell, timed beside its plain
+     version with its bound;
   4. the main paths through the CLI entry point, in this process, each with
      every launch count zeroed before it and read after it: ``style-bank``
      for four synthetic PACS domains, ``stylize --target photo --mode
@@ -55,7 +59,9 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      ``--engine int8``, ``--output-size 96`` (96 px PNGs) and ``ref`` for the
      other three content domains; a ``--skip-existing`` rerun that launches
      and writes nothing, and one after an output a style is deleted that
-     rewrites exactly those; outputs must exist, spread and be finite, and
+     rewrites exactly those; ``style-bank --model wct`` and ``stylize --model
+     wct --mode overall`` (WCT's five-level cascade, its centring kernel
+     counted beside K3); outputs must exist, spread and be finite, and
      every kernel's launch count must be exactly what the path implies; then
      ``reorganize``, ``gen-lists``, ``filter-blank`` and ``split-data`` on the
      same tree, each exiting 0 and writing its lists;
@@ -279,7 +285,20 @@ K3_SHAPES = [
     ("dconv1_1", (4, 512, 512, 64, 3)),
     ("ragged", (2, 37, 53, 64, 128)),
 ]
+# K3 at the shapes only WCT's path launches (``--model wct``), at the batch of
+# the benchmark's WCT cell: 512 -> 512 at 64 x 64 (conv4_2..4_4 and their
+# mirrors dconv4_4..4_2) and at 32 x 32 (conv5_1 and dconv5_1)
+K3_WCT_SHAPES = [
+    ("conv4_2..4_4, dconv4_4..4_2 (WCT)", (32, 64, 64, 512, 512)),
+    ("conv5_1, dconv5_1 (WCT)", (32, 32, 32, 512, 512)),
+]
 K3_MAIN = (4, 512, 512, 64, 64)
+# W1, WCT's centring pass, at the (B, P, C) of each level of the benchmark's
+# WCT cell (batch 32 at 512 px)
+W1_SHAPES = [("relu5_1", (32, 1024, 512)), ("relu4_1", (32, 4096, 512)),
+             ("relu3_1", (32, 16384, 256)), ("relu2_1", (32, 65536, 128)),
+             ("relu1_1", (32, 262144, 64))]
+W1_MAIN = W1_SHAPES[-1][1]
 # K3's float32 route (``--dtype float32``) at every shape of the 512 px path,
 # then ragged planes: Cin and Cout off every vector width (the scalar gather),
 # Cout = 3 (the narrow tile) on a plane that is no multiple of its 32 x 64 tile
@@ -460,6 +479,100 @@ def cudnn_bf16_conv(torch, x, cw, pad_mode="reflect"):
     w = cw.w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     b = cw.b.to(x.dtype)
     return lambda: F.conv2d(xp, w, b)
+
+
+def k3_bf16_rows(torch, dev, gen, layer, shape):
+    """K3 in bf16 at one shape against its plain version, with and without
+    ReLU; the ReLU row timed beside cuDNN's bf16 conv and the plain version,
+    with its bound. Returns the rows."""
+    from ccst_tpu_torch.benchmarks.small_kernels import graph_ms
+    from ccst_tpu_torch.kernels.conv import (
+        prepare_conv,
+        reflect_conv3x3,
+        reflect_conv3x3_reference,
+    )
+
+    n, h, w, cin, cout = shape
+    rows = []
+    x = torch.randn((n, h, w, cin), generator=gen).to(dev, torch.bfloat16)
+    spread = (1.0 / (9 * cin)) ** 0.5
+    wt = (torch.rand((3, 3, cin, cout), generator=gen) * 2 - 1) * spread
+    b = (torch.rand((cout,), generator=gen) * 2 - 1) * spread
+    cw = prepare_conv(wt, b, torch.bfloat16, dev)
+    bd = conv_bound((n, h, w, cin, cout), BF16_PEAK_TFLOPS, 2, 2)
+    flop = 2 * n * h * w * 9 * cin * cout
+    for relu in (True, False):
+        got = reflect_conv3x3(x, cw, relu)
+        torch.cuda.synchronize()
+        want = reflect_conv3x3_reference(x, cw.w, cw.b, relu)
+        mx, mean = check_close(f"K3 {(n, h, w, cin, cout)} relu={relu}", got, want, **BF16_TOL)
+        row = dict(layer=layer, shape=[n, h, w, cin, cout], relu=relu, max_abs_err=mx,
+                   mean_abs_err=mean)
+        if relu:  # timed once a shape; ReLU is one max in the epilogue
+            ms = time_ms(torch, lambda: reflect_conv3x3(x, cw, True))
+            plain = time_ms(torch, lambda: reflect_conv3x3_reference(x, cw.w, cw.b, True),
+                            reps=3, runs=3)
+            torch.backends.cudnn.benchmark = True
+            lib = time_ms(torch, cudnn_bf16_conv(torch, x, cw))
+            torch.backends.cudnn.benchmark = False
+            row.update(ms=ms, plain_ms=plain, cudnn_bf16_ms=lib, **bd)
+            line = (f"K3 conv {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean {mean:.3e} "
+                    f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) bound "
+                    f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                    f"({100 * bd['bound_ms'] / ms:.1f}% reached) cuDNN bf16 {lib:.4f} ms "
+                    f"({flop / (lib * 1e-3) / 1e12:.1f} TFLOP/s) plain f32 {plain:.4f} ms")
+            if ms < GRAPH_BELOW_MS:
+                row["graph_ms"] = graph_ms(torch, lambda: reflect_conv3x3(x, cw, True), 20,
+                                           5)["median"]
+                line += f"; graph {row['graph_ms']:.4f} ms"
+            print(line)
+        else:
+            print(f"K3 conv {layer} {(n, h, w, cin, cout)} relu=False: max {mx:.3e} mean {mean:.3e}")
+        rows.append(row)
+    return rows
+
+
+def check_wct_centre(torch, dev):
+    """Phase 3, W1: WCT's centring pass (``kernels/wct.py::centre_split``)
+    against its plain version on the card, ``hi`` and ``lo`` bit for bit, in
+    bfloat16 and float32 at every level's shape; each timed beside the plain
+    version, with its bound (the features read, ``hi`` and ``lo`` written and
+    the means read once: ``gpubench/flops/wct.py::centre_split_bytes``'s
+    count). Returns the rows."""
+    from ccst_tpu_torch.kernels.wct import PAD, centre_split, centre_split_reference
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for level, (b, p, c) in W1_SHAPES:
+            # features on VGG's scale with a channel offset, as the levels' are
+            x = (torch.randn((b, p, c), generator=gen, device=dev) * 60.0
+                 + torch.rand((1, 1, c), generator=gen, device=dev) * 200.0).to(dtype)
+            mean = x.mean(dim=1, dtype=torch.float32)
+            hi, lo = centre_split(x, mean)
+            want_hi, want_lo = centre_split_reference(x, mean)
+            torch.cuda.synchronize()
+            name = f"W1 {level} {(b, p, c)} {dtype}"
+            check_equal(torch, f"{name} hi", hi, want_hi)
+            if (lo is None) != (want_lo is None):
+                fail(f"{name}: lo {lo is not None} against the plain version's "
+                     f"{want_lo is not None}")
+            if lo is not None:
+                check_equal(torch, f"{name} lo", lo, want_lo)
+            del hi, lo, want_hi, want_lo
+            ms = time_ms(torch, lambda: centre_split(x, mean))
+            plain = time_ms(torch, lambda: centre_split_reference(x, mean), reps=3, runs=3)
+            size = x.element_size()
+            lo_bytes = 2 * c if dtype == torch.bfloat16 else 0
+            nbytes = b * p * (c * size + (c + PAD) * size + lo_bytes) + 4 * b * c
+            bd = bound(0, BF16_PEAK_TFLOPS, nbytes)
+            rows.append(dict(level=level, shape=[b, p, c], dtype=str(dtype), max_abs_err=0.0,
+                             ms=ms, plain_ms=plain, bytes=nbytes, **bd))
+            print(f"{name}: hi, lo bit-equal to the plain version | kernel {ms:.4f} ms "
+                  f"({nbytes / (ms * 1e-3) / 1e12:.2f} TB/s) bound {bd['bound_ms']:.4f} ms by "
+                  f"{bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% reached) plain {plain:.4f} ms")
+            del x, mean
+    return rows
 
 
 def check_small_kernels(torch, dev, gen, results, batch):
@@ -3094,44 +3207,10 @@ def main() -> int:
     # -- 3. kernels vs plain versions --------------------------------------
     gen = torch.Generator().manual_seed(0)
     results = {k: [] for k in ("K3", "K4", "K4-given", "K5", "K0", "K1", "K2", "B1", "B2-direct",
-                               "B2-wino", "B3")}
+                               "B2-wino", "B3", "W1")}
 
-    for layer, (n, h, w, cin, cout) in K3_SHAPES:
-        x = torch.randn((n, h, w, cin), generator=gen).to(dev, torch.bfloat16)
-        spread = (1.0 / (9 * cin)) ** 0.5
-        wt = (torch.rand((3, 3, cin, cout), generator=gen) * 2 - 1) * spread
-        b = (torch.rand((cout,), generator=gen) * 2 - 1) * spread
-        cw = prepare_conv(wt, b, torch.bfloat16, dev)
-        bd = conv_bound((n, h, w, cin, cout), BF16_PEAK_TFLOPS, 2, 2)
-        flop = 2 * n * h * w * 9 * cin * cout
-        for relu in (True, False):
-            got = reflect_conv3x3(x, cw, relu)
-            torch.cuda.synchronize()
-            want = reflect_conv3x3_reference(x, cw.w, cw.b, relu)
-            mx, mean = check_close(f"K3 {(n, h, w, cin, cout)} relu={relu}", got, want, **BF16_TOL)
-            row = dict(layer=layer, shape=[n, h, w, cin, cout], relu=relu, max_abs_err=mx,
-                       mean_abs_err=mean)
-            if relu:  # timed once a shape; ReLU is one max in the epilogue
-                ms = time_ms(torch, lambda: reflect_conv3x3(x, cw, True))
-                plain = time_ms(torch, lambda: reflect_conv3x3_reference(x, cw.w, cw.b, True),
-                                reps=3, runs=3)
-                torch.backends.cudnn.benchmark = True
-                lib = time_ms(torch, cudnn_bf16_conv(torch, x, cw))
-                torch.backends.cudnn.benchmark = False
-                row.update(ms=ms, plain_ms=plain, cudnn_bf16_ms=lib, **bd)
-                line = (f"K3 conv {layer} {(n, h, w, cin, cout)}: max {mx:.3e} mean {mean:.3e} "
-                        f"| kernel {ms:.4f} ms ({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) bound "
-                        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-                        f"({100 * bd['bound_ms'] / ms:.1f}% reached) cuDNN bf16 {lib:.4f} ms "
-                        f"({flop / (lib * 1e-3) / 1e12:.1f} TFLOP/s) plain f32 {plain:.4f} ms")
-                if ms < GRAPH_BELOW_MS:
-                    row["graph_ms"] = graph_ms(torch, lambda: reflect_conv3x3(x, cw, True), 20,
-                                               5)["median"]
-                    line += f"; graph {row['graph_ms']:.4f} ms"
-                print(line)
-            else:
-                print(f"K3 conv {layer} {(n, h, w, cin, cout)} relu=False: max {mx:.3e} mean {mean:.3e}")
-            results["K3"].append(row)
+    for layer, shape in K3_SHAPES + K3_WCT_SHAPES:
+        results["K3"] += k3_bf16_rows(torch, dev, gen, layer, shape)
 
     # K3's exact float32 route (the engines' --dtype float32): FFMA sums, TF32
     # off on both sides, cuDNN's float32 conv timed beside it for comparison only
@@ -3174,6 +3253,7 @@ def main() -> int:
     del x, got, want
 
     check_small_kernels(torch, dev, gen, results, batch)
+    results["W1"] += check_wct_centre(torch, dev)
 
     # ragged edges, correctness only: the smallest reflectable plane (below the
     # 8 x 16 tile), planes that are no multiple of it with Cout = 3 and N > 1,
@@ -3204,10 +3284,13 @@ def main() -> int:
     from ccst_tpu_torch.pipeline.style_bank import load_style_stats
     from ccst_tpu_torch.pipeline.stylize import StylizeEngine
 
+    from ccst_tpu_torch.kernels.wct import centre_split
+    from ccst_tpu_torch.pipeline import wct
+
     counters = {"K3": reflect_conv3x3, "K4": fused_adain_multi, "K5": channel_moments,
                 "K0": qconv3x3_s8, "K1": encoder_level1, "K2": decoder_level1,
                 "B1": tiled_mm, "B2-direct": conv_direct, "B2-wino": conv_wino,
-                "B3": pool_conv_fused}
+                "B3": pool_conv_fused, "W1": centre_split}
     launches = {k: 0 for k in counters}
     with tempfile.TemporaryDirectory(prefix="ccst_smoke_") as root:
         t0 = time.perf_counter()
@@ -3222,6 +3305,15 @@ def main() -> int:
         dec_path = os.path.join(root, "decoder.npz")
         convert.save_npz(enc_path, enc)
         convert.save_npz(dec_path, dec)
+        # WCT: VGG-19 on to conv5_1 and its five decoders
+        wct_enc_path = os.path.join(root, "vgg_wct.npz")
+        wct_dec_path = os.path.join(root, "decoders_wct.npz")
+        convert.save_npz(wct_enc_path, vgg.init_params(vgg.WCT_ENCODER_ARCH,
+                                                       torch.Generator().manual_seed(44)))
+        wct.save_decoders(wct_dec_path, wct.init_decoders(torch.Generator().manual_seed(45)))
+        wct_root = os.path.join(root, "wct")
+        wct_args = ["--model", "wct", "--vgg-weights", wct_enc_path, "--decoder-weights",
+                    wct_dec_path, "--style-stats-dir", os.path.join(wct_root, "style_stats")]
         stats_dir = os.path.join(root, "style_stats")
         int8_root = os.path.join(root, "int8")
         f32_root = os.path.join(root, "float32")  # the parity mode's banks and outputs
@@ -3290,6 +3382,17 @@ def main() -> int:
             *((f"stylize ref --target {d}", ["stylize", *common(root), "--target", d, "--mode",
                                              "overall"], per_overall)
               for d in DOMAINS if d != "photo"),
+            # WCT: the encoder on to relu5_1 (13 K3) a bank batch; a content
+            # batch encoded to relu5_1 once, then a style decodes relu5_1 (13)
+            # and encodes and decodes relu4_1 (9 + 9), relu3_1 (5 + 5), relu2_1
+            # (3 + 3) and relu1_1 (1 + 1), one centring a level and style
+            # besides relu5_1's one (the last flags win over common's)
+            ("style-bank wct", ["style-bank", *common(wct_root), *wct_args],
+             {"K3": 13 * n_bank_batches}),
+            ("stylize wct", ["stylize", *common(wct_root), *wct_args, *target, "--mode",
+                             "overall"],
+             {"K3": (13 + 49 * n_styles) * n_content_batches,
+              "W1": (1 + 4 * n_styles) * n_content_batches}),
         )
 
         def run_step(step, argv, expect):
@@ -3355,7 +3458,7 @@ def main() -> int:
         print(f"stylize --skip-existing: nothing rewritten when nothing was missing; exactly the "
               f"{len(gone)} deleted outputs rewritten, byte for byte")
 
-        for k in ("K0", "K1", "K2", "K3", "K4", "K5"):
+        for k in ("K0", "K1", "K2", "K3", "K4", "K5", "W1"):
             if launches[k] == 0:
                 fail(f"{k} was never launched on the main paths")
 
@@ -3773,6 +3876,9 @@ def main() -> int:
         "B2-wino": ("conv_wino", "cuda", "ccst_tpu_torch/csrc/winograd_s8.cu",
                     "benchmarks/winograd_ab.py:90", list(B2_MAIN),
                     "python -m ccst_tpu_torch.benchmarks.winograd_ab"),
+        "W1": ("centre_split", "cuda", "ccst_tpu_torch/csrc/wct/wct_centre.cu",
+               "none (WCT has no JAX counterpart)", list(W1_MAIN),
+               "stylize --model wct (one launch a level and style, relu5_1's once a batch)"),
         "B3": ("pool_conv_fused", "cuda", "ccst_tpu_torch/csrc/pool_conv_s8.cu",
                "benchmarks/fused_pool_conv_ab.py:123", [*B3_MAIN, 256],
                f"python -m ccst_tpu_torch.benchmarks.fused_pool_conv_ab --batch {B3_HARNESS_BATCH}"),

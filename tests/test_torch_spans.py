@@ -5,6 +5,7 @@ copy loop, the federated round loop and the loader, and the operator's
 ``--trace-dir`` export. A profiled stylize run gives the same bytes as an
 unprofiled one.
 """
+import gc
 import json
 import os
 import time
@@ -79,7 +80,14 @@ def test_without_a_profiler_a_span_is_the_shared_no_op(monkeypatch):
     _no_ranges(monkeypatch)
     assert not profiling.active()
     assert span("a") is span("b") is profiling._NO_SPAN
-    tracemalloc.start()
+    # only this test's own calls are measured: the collector does not run
+    # inside the loop (it would finalize what earlier tests left behind, on
+    # this thread), and an allocation counts only if this test's frame is on
+    # its stack (other threads of the process, such as a loader's, are not
+    # this test's calls)
+    gc.collect()
+    gc.disable()
+    tracemalloc.start(64)
     try:
         before = tracemalloc.take_snapshot()
         for _ in range(1000):
@@ -88,6 +96,9 @@ def test_without_a_profiler_a_span_is_the_shared_no_op(monkeypatch):
         after = tracemalloc.take_snapshot()
     finally:
         tracemalloc.stop()
+        gc.enable()
+    ours = tracemalloc.Filter(True, __file__, all_frames=True)
+    before, after = before.filter_traces([ours]), after.filter_traces([ours])
     grown = [s for s in after.compare_to(before, "filename")
              if s.traceback[0].filename == profiling.__file__ and s.size_diff > 0]
     assert grown == []
