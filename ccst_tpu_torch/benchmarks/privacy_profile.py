@@ -84,7 +84,7 @@ def frozen_passes(dev, size: int):
     autograd route (cuDNN) and the kernel route with K3's plain version."""
     import torch
 
-    from ccst_tpu_torch.kernels.conv import reflect_conv3x3_reference
+    from ccst_tpu_torch.kernels.conv import reflect_conv3x3_reference, upsample_nearest2x
     from ccst_tpu_torch.models import vgg
 
     g = torch.Generator().manual_seed(1)
@@ -99,8 +99,9 @@ def frozen_passes(dev, size: int):
     def plain(fn):
         def run():
             real = vgg.reflect_conv3x3
-            vgg.reflect_conv3x3 = lambda x, cw, relu=True: reflect_conv3x3_reference(
-                x, cw.w, cw.b, relu)
+            vgg.reflect_conv3x3 = lambda x, cw, relu=True, upsample=False: (
+                reflect_conv3x3_reference(upsample_nearest2x(x) if upsample else x, cw.w, cw.b,
+                                          relu))
             try:
                 return fn()
             finally:

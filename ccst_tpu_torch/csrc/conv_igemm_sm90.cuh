@@ -38,6 +38,17 @@
 // is fetched while step s is multiplied and step s - 1 may still be in the
 // tensor cores (wgmma.wait_group 1), so the barrier at the top of a step has
 // already seen every warpgroup finish the step whose slot is refilled.
+//
+// Nearest-2x input (ConvGeom::up = 1; K3's decoder convs after an upsample).
+// The output plane is H x W and the input is the (H / 2, W / 2) plane it
+// would be upsampled from: halo position i of an axis reads source index
+// pad_index(i, H) >> 1, since upsampled row y holds source row y >> 1 and a
+// reflection (or clamp) at the upsampled edge is one in the upsampled plane,
+// then the shift. Every halo slot holds the value it holds when the
+// upsampled tensor is gathered, so the sums are the same, bit for bit; the
+// upsampled tensor is never written (4x the source's bytes) nor read back
+// (the conv reads the source, neighbouring slots the same pixel, from L2
+// after the first). The int8 kernels launch with up = 0.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +81,7 @@ struct ConvGeom {
   int ntiles_n;            // output-channel tiles
   int reflect;             // 1: reflect padding, 0: edge padding
   int row_shift;           // output row h is centred on input row h - row_shift (0: a plain conv)
+  int up;                  // 1: the input is the (H / 2, W / 2) plane, read through the nearest-2x map
   int a_slots, b_slots;    // slots allocated in dynamic shared memory
 };
 
@@ -310,9 +322,9 @@ __device__ __forceinline__ void conv_mainloop(typename AccType<BF16>::type (&acc
     for (int i = 0; i < A_ITEMS; ++i) {
       const int p = (tid >> 3) + (THREADS / GROUPS) * i;
       const int hy = p / HALO_W, hx = p - hy * HALO_W;
-      const int gy = pad_index(y0 - 1 - g.row_shift + hy, g.H, g.reflect);
-      const int gx = pad_index(x0 - 1 + hx, g.W, g.reflect);
-      pix[i] = p < HALO_PX ? (n * g.H + gy) * g.W + gx : -1;
+      const int gy = pad_index(y0 - 1 - g.row_shift + hy, g.H, g.reflect) >> g.up;
+      const int gx = pad_index(x0 - 1 + hx, g.W, g.reflect) >> g.up;
+      pix[i] = p < HALO_PX ? (n * (g.H >> g.up) + gy) * (g.W >> g.up) + gx : -1;
     }
   }
   __syncthreads();  // the barriers are initialised
@@ -545,8 +557,9 @@ constexpr int min_blocks(int BN) { return BN <= 64 ? 3 : 2; }
 // Output-channel tile: the narrow one for the few-channel layers, else 64 or 128.
 inline int pick_bn(int cout, int narrow) { return cout <= narrow ? narrow : (cout <= 64 ? 64 : 128); }
 
+// H, W: the output plane (with up = 1, twice the input's).
 inline ConvGeom make_geom(int N, int H, int W, int cin_bytes, int Cout, int BN, int TPS,
-                          int reflect, int row_shift = 0) {
+                          int reflect, int row_shift = 0, int up = 0) {
   ConvGeom g;
   g.N = N; g.H = H; g.W = W;
   g.cin_bytes = cin_bytes;
@@ -557,6 +570,7 @@ inline ConvGeom make_geom(int N, int H, int W, int cin_bytes, int Cout, int BN, 
   g.ntiles_n = (Cout + BN - 1) / BN;
   g.reflect = reflect;
   g.row_shift = row_shift;
+  g.up = up;
   const int stages = TPS == 1 ? 4 : 3;
   const int steps = g.nchunks * (9 / TPS);
   g.b_slots = steps < stages ? steps : stages;

@@ -50,6 +50,16 @@
 // is an outer product: four float4 loads of one pixel's channels and of the
 // held weights feed 16 FFMAs a load. Sums run chunk, then tap, then channel.
 // conv1_1 (Cin = 3) keeps the scalar-gather FFMA kernel, picked by Cin.
+//
+// A nearest-2x upsample before the conv (the decoder's dconv4_4, dconv3_4,
+// dconv2_2, dconv1_2) folds into the halo gather of both stage routes (up = 1):
+// the input is the half-size plane and halo position i reads source index
+// pad_index(i, 2H) >> 1, exact (conv_igemm_sm90.cuh says why). The upsampled
+// tensor, 4x the source, is neither written nor read back (at 512 px, batch 32
+// in bf16: 1.88 GB a style through the AdaIN decoder, 6.58 GB a style through
+// WCT's four upsampling decoders), and the conv reads the source, a quarter of
+// those bytes. The scalar-gather kernels (Cin = 3, never after an upsample)
+// refuse up.
 #include <mma.h>
 
 #include "conv_igemm_sm90.cuh"
@@ -332,9 +342,10 @@ template <int BN> struct Tile {
 };
 
 struct Geom {
-  int N, H, W, Cin, Cout;
+  int N, H, W, Cin, Cout;  // H, W: the output plane
   int nchunks, tiles_x, tiles_y, ntiles_n;
   int reflect;  // 1: reflect padding, 0: edge padding
+  int up;       // 1: the input is the (H / 2, W / 2) plane, read through the nearest-2x map
 };
 
 template <int BN>
@@ -370,11 +381,12 @@ reflect_conv3x3_f32_stage_kernel(const float* __restrict__ x, const float* __res
     for (int it = tid; it < (T::TH + 2) * (T::TW + 2) * T::PIECES; it += THREADS) {
       const int p = it / T::PIECES, piece = it - p * T::PIECES;
       const int hy = p / (T::TW + 2), hxx = p - hy * (T::TW + 2);
-      const int gy = pad_index(y0 - 1 + hy, g.H, g.reflect);
-      const int gx = pad_index(x0 - 1 + hxx, g.W, g.reflect);
+      const int gy = pad_index(y0 - 1 + hy, g.H, g.reflect) >> g.up;
+      const int gx = pad_index(x0 - 1 + hxx, g.W, g.reflect) >> g.up;
       const int ci = c * T::CK + 4 * piece;
       const bool in = ci < g.Cin;
-      const float* src = in ? x + (static_cast<size_t>(n * g.H + gy) * g.W + gx) * g.Cin + ci : x;
+      const float* src =
+          in ? x + (static_cast<size_t>(n * (g.H >> g.up) + gy) * (g.W >> g.up) + gx) * g.Cin + ci : x;
       cp_async16(smem_u32(halo + hy * T::RP + hxx * T::CK + 4 * piece), src, in);
     }
     if (tid == 0) {
@@ -468,12 +480,13 @@ reflect_conv3x3_f32_stage_kernel(const float* __restrict__ x, const float* __res
   }
 }
 
+// H, W: the output plane (with up = 1, twice the input's)
 template <int BN>
 cudaError_t launch_stage(const void* x, const void* wp, const void* bias, void* y, int N, int H,
-                         int W, int Cin, int Cout, int relu, int reflect, cudaStream_t st) {
+                         int W, int Cin, int Cout, int relu, int reflect, int up, cudaStream_t st) {
   using T = Tile<BN>;
   Geom g{N, H, W, Cin, Cout, (Cin + T::CK - 1) / T::CK, (W + T::TW - 1) / T::TW,
-         (H + T::TH - 1) / T::TH, (Cout + BN - 1) / BN, reflect};
+         (H + T::TH - 1) / T::TH, (Cout + BN - 1) / BN, reflect, up};
   auto kernel = reflect_conv3x3_f32_stage_kernel<BN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(T::SMEM));
@@ -487,10 +500,11 @@ cudaError_t launch_stage(const void* x, const void* wp, const void* bias, void* 
 
 }  // namespace f32
 
+// H, W: the output plane (with up = 1, twice the input's)
 template <int BN, int TPS>
 cudaError_t launch_wgmma(const void* x, const void* wp, const void* bias, void* y, int N, int H,
-                         int W, int Cin, int Cout, int relu, int reflect, cudaStream_t st) {
-  const ConvGeom g = make_geom(N, H, W, Cin * 2, Cout, BN, TPS, reflect);
+                         int W, int Cin, int Cout, int relu, int reflect, int up, cudaStream_t st) {
+  const ConvGeom g = make_geom(N, H, W, Cin * 2, Cout, BN, TPS, reflect, 0, up);
   return launch(reflect_conv3x3_wgmma_kernel<BN, TPS>, g, smem_bytes(g, BN, TPS), st,
                 static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wp),
                 static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), relu);
@@ -499,28 +513,32 @@ cudaError_t launch_wgmma(const void* x, const void* wp, const void* bias, void* 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). x: (N,H,W,Cin) bf16; bias: (Cout,)
-// f32; y: (N,H,W,Cout) bf16; all contiguous. wp: the packed weights of
+// f32; y: (N,H,W,Cout) bf16, or with up = 1 (N,2H,2W,Cout), the conv of x
+// upsampled nearest 2x; all contiguous. wp: the packed weights of
 // kernels/conv.py::pack_weight: for Cin % 8 == 0 the stage tiles
 // [n tile][chunk][tap][8][BN][8 bf16] with BN = 8 (Cout <= 8), 64 (<= 64) or
 // 128; otherwise the (roundup(9*Cin, 32), roundup(Cout, 64)) matrix of the
 // gather kernel. reflect: 1 reflect padding (every VGG layer), 0 edge padding
-// (the packed engine's level-1 convs). Launches on `stream` and returns the
-// first CUDA error (0 on success).
+// (the packed engine's level-1 convs). up: 1 only where Cin % 8 == 0 (the
+// scalar gather returns cudaErrorInvalidValue). Launches on `stream` and
+// returns the first CUDA error (0 on success).
 extern "C" int ccst_reflect_conv3x3_bf16(const void* x, const void* wp, const void* bias,
                                          void* y, int N, int H, int W, int Cin, int Cout,
-                                         int relu, int reflect, void* stream) {
+                                         int relu, int reflect, int up, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Cin % 8 == 0) {
     const int bn = pick_bn(Cout, 8);
+    const int Ho = H << up, Wo = W << up;
     cudaError_t err;
     if (bn == 8)
-      err = launch_wgmma<8, 9>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
+      err = launch_wgmma<8, 9>(x, wp, bias, y, N, Ho, Wo, Cin, Cout, relu, reflect, up, st);
     else if (bn == 64)
-      err = launch_wgmma<64, 1>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
+      err = launch_wgmma<64, 1>(x, wp, bias, y, N, Ho, Wo, Cin, Cout, relu, reflect, up, st);
     else
-      err = launch_wgmma<128, 1>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
+      err = launch_wgmma<128, 1>(x, wp, bias, y, N, Ho, Wo, Cin, Cout, relu, reflect, up, st);
     return static_cast<int>(err);
   }
+  if (up) return static_cast<int>(cudaErrorInvalidValue);
   const long long M = (long long)N * H * W;
   const int Kp = (9 * Cin + BK - 1) / BK * BK, Np = (Cout + BNG - 1) / BNG * BNG;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(Np / BNG));
@@ -535,24 +553,26 @@ extern "C" int ccst_reflect_conv3x3_bf16(const void* x, const void* wp, const vo
 // cores). wp: for Cin % 4 == 0 the stage tiles [n tile][chunk][tap][ci][BN] of
 // kernels/conv.py::pack_f32_stages (BN = 4 for Cout <= 4, 8 for <= 8, 64 for
 // <= 64, else 128; chunks of 8 channels, 4 for BN <= 8); otherwise the float32
-// (roundup(9*Cin, 32), roundup(Cout, 64)) matrix of the gather kernel. Same
-// contract otherwise.
+// (roundup(9*Cin, 32), roundup(Cout, 64)) matrix of the gather kernel. up: 1
+// only where Cin % 4 == 0. Same contract otherwise.
 extern "C" int ccst_reflect_conv3x3_f32(const void* x, const void* wp, const void* bias, void* y,
                                         int N, int H, int W, int Cin, int Cout, int relu,
-                                        int reflect, void* stream) {
+                                        int reflect, int up, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Cin % 4 == 0) {
+    const int Ho = H << up, Wo = W << up;
     cudaError_t err;
     if (Cout <= 4)
-      err = f32::launch_stage<4>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
+      err = f32::launch_stage<4>(x, wp, bias, y, N, Ho, Wo, Cin, Cout, relu, reflect, up, st);
     else if (Cout <= 8)
-      err = f32::launch_stage<8>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
+      err = f32::launch_stage<8>(x, wp, bias, y, N, Ho, Wo, Cin, Cout, relu, reflect, up, st);
     else if (Cout <= 64)
-      err = f32::launch_stage<64>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
+      err = f32::launch_stage<64>(x, wp, bias, y, N, Ho, Wo, Cin, Cout, relu, reflect, up, st);
     else
-      err = f32::launch_stage<128>(x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, st);
+      err = f32::launch_stage<128>(x, wp, bias, y, N, Ho, Wo, Cin, Cout, relu, reflect, up, st);
     return static_cast<int>(err);
   }
+  if (up) return static_cast<int>(cudaErrorInvalidValue);
   const long long M = (long long)N * H * W;
   const int Kp = (9 * Cin + FBK - 1) / FBK * FBK, Np = (Cout + FBN - 1) / FBN * FBN;
   dim3 grid((unsigned)((M + FBM - 1) / FBM), (unsigned)(Np / FBN));

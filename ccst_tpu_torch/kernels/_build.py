@@ -35,8 +35,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry points: pointers and the stream as c_void_p, ints as c_int
 SIGNATURES = {
     # x, wp, bias, y, N, H, W, Cin, Cout, relu, reflect, stream
-    "ccst_reflect_conv3x3_bf16": [_P] * 4 + [_I] * 7 + [_P],
-    "ccst_reflect_conv3x3_f32": [_P] * 4 + [_I] * 7 + [_P],
+    "ccst_reflect_conv3x3_bf16": [_P] * 4 + [_I] * 8 + [_P],
+    "ccst_reflect_conv3x3_f32": [_P] * 4 + [_I] * 8 + [_P],
     # x, y, s_mean, s_std, N, HW, C, S, cluster, rows_per_block, resident, is_f32,
     # alpha, eps, n_var, stream
     "ccst_adain": [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P],

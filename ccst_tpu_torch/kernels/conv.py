@@ -10,6 +10,23 @@ the space-to-depth plane is reflect padding of the image. The kernel is
 design answers that. float32 tensors (the engines' verification mode) take the
 same source's exact float32 kernels: FFMA sums, no tensor cores, no TF32.
 
+``upsample=True`` is the conv of the input upsampled nearest 2x, the
+decoder's conv after each ``Upsample``. The stage routes (bf16 with Cin a
+multiple of 8, float32 with Cin a multiple of 4) fold the upsample into their
+halo gather: halo position ``i`` of an axis of the ``2H``-long upsampled plane
+reads source index ``pad_index(i, 2H) >> 1``, since upsampled row ``y`` is
+source row ``y >> 1`` and a reflection (or clamp) at the upsampled edge is one
+in the upsampled plane, then the shift. Every halo slot holds the value it
+holds when the upsampled tensor is gathered, so the output is the
+composition's, bit for bit; the upsampled tensor (4x the source) is neither
+allocated, written nor read back, and the conv reads the source instead: at
+512 px, batch 32 in bf16, 1.88 GB a style through the AdaIN decoder and 6.58
+GB a style through WCT's decoders are not written, and the conv reads a
+quarter of them. ``reflect_conv3x3.up_launches`` counts the folded launches
+(also in ``launches``), and so does the ``k3.up_folded`` counter of
+``utils/profiling.py`` while a profiler runs. The CPU and the other routes
+compose :func:`upsample_nearest2x` and the conv.
+
 Weights are prepared once per layer (:func:`prepare_conv`): the HWIO tensor for
 the plain version, and the kernel's layout (:func:`pack_weight`), picked by the
 dtype and Cin: bf16 with Cin a multiple of 8 the stage tiles of
@@ -35,6 +52,7 @@ import torch.nn.functional as F
 
 from ccst_tpu_torch.kernels import refuse_autograd
 from ccst_tpu_torch.kernels.igemm_layout import pack_stage_tiles, pad_index, pick_bn
+from ccst_tpu_torch.utils import profiling
 
 # csrc/reflect_conv3x3.cu: the narrow output-channel tile of its wgmma path,
 # and the tile (BK, BN) its scalar-gather paths pad the weight matrix to.
@@ -118,14 +136,16 @@ def unpack_f32_stages(packed: torch.Tensor, cin: int, cout: int) -> torch.Tensor
 
 
 def simulate_f32_conv(x: np.ndarray, packed: np.ndarray, cout: int,
-                      reflect: bool = True) -> np.ndarray:
+                      reflect: bool = True, up: bool = False) -> np.ndarray:
     """The sums the float32 stage kernel forms, (N, H, W, cout), without bias:
     per block its reflected (or edge-padded) halo chunk by chunk in the pixel-major plane of
     pitch ``rp``, each thread's 8 pixels of one tile row and its channels
     ``4 cg + h bn / 2 + j``, each tap as an offset ``dy * rp + dx * ck`` into
     the plane, the weights read from the chunk's stage, and the sums taken
-    chunk, then tap, then channel."""
+    chunk, then tap, then channel. ``up``: ``Geom::up``, the output is
+    (N, 2H, 2W, cout) and the halo reads ``x`` through the nearest-2x map."""
     n_img, h, w, cin = x.shape
+    h, w = h << up, w << up
     tiles, chunks, taps, ck, bn = packed.shape
     t = f32_tile(bn)
     assert ck == t.ck
@@ -139,8 +159,8 @@ def simulate_f32_conv(x: np.ndarray, packed: np.ndarray, cout: int,
     for n in range(n_img):
         for y0 in range(0, h, t.th):
             for x0 in range(0, w, t.tw):
-                gy = pad_index(y0 - 1 + np.arange(t.th + 2), h, reflect)
-                gx = pad_index(x0 - 1 + np.arange(t.tw + 2), w, reflect)
+                gy = pad_index(y0 - 1 + np.arange(t.th + 2), h, reflect) >> up
+                gx = pad_index(x0 - 1 + np.arange(t.tw + 2), w, reflect) >> up
                 patch = x[n][gy][:, gx]                     # (th + 2, tw + 2, cin)
                 for nt in range(tiles):
                     acc = np.zeros((F32_THREADS, F32_PX, t.halves, 4), x.dtype)
@@ -202,6 +222,13 @@ def prepare_conv(w_hwio, b, dtype: torch.dtype, device) -> ConvWeights:
 _TORCH_PAD = {"reflect": "reflect", "edge": "replicate"}
 
 
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, 2H, 2W, C), each pixel repeated 2 x 2."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
+    return x.reshape(n, h * 2, w * 2, c)
+
+
 def reflect_conv3x3_reference(
     x: torch.Tensor, w_hwio: torch.Tensor, b: torch.Tensor, relu: bool = True,
     pad_mode: str = "reflect",
@@ -219,24 +246,32 @@ def reflect_conv3x3_reference(
 
 
 def reflect_conv3x3(
-    x: torch.Tensor, cw: ConvWeights, relu: bool = True, pad_mode: str = "reflect"
+    x: torch.Tensor, cw: ConvWeights, relu: bool = True, pad_mode: str = "reflect",
+    upsample: bool = False,
 ) -> torch.Tensor:
     """(N, H, W, Cin) -> (N, H, W, Cout) in x.dtype; the CUDA kernel on a CUDA
     tensor (bf16 on the tensor cores, float32 exact; weights prepared in the
     same dtype), the plain version on a CPU tensor. ``pad_mode``:
-    ``"reflect"`` or ``"edge"``. Raises if an operand requires grad under grad
-    mode: the kernel has no backward."""
+    ``"reflect"`` or ``"edge"``. ``upsample``: the conv of x upsampled nearest
+    2x, (N, 2H, 2W, Cout); one folded launch on the stage routes, the
+    composition elsewhere (module docstring). Raises if an operand requires
+    grad under grad mode: the kernel has no backward."""
     if pad_mode not in _TORCH_PAD:
         raise ValueError(f"pad_mode must be 'reflect' or 'edge', got {pad_mode!r}")
     refuse_autograd("reflect_conv3x3", x, cw.w, cw.b)
     if x.device.type == "cpu":
-        return reflect_conv3x3_reference(x, cw.w, cw.b, relu, pad_mode)
+        return reflect_conv3x3_reference(upsample_nearest2x(x) if upsample else x, cw.w, cw.b,
+                                         relu, pad_mode)
     n, h, w, cin = x.shape
     kh, kw, wcin, cout = cw.w.shape
     if (kh, kw, wcin) != (3, 3, cin):
         raise ValueError(f"weights {tuple(cw.w.shape)} do not fit input {tuple(x.shape)}")
-    if pad_mode == "reflect" and (h < 2 or w < 2):
-        raise ValueError(f"reflection padding needs H, W >= 2, got {h}x{w}")
+    if upsample and not (uses_wgmma(cin, x.dtype) or uses_f32_stages(cin, x.dtype)):
+        return reflect_conv3x3(upsample_nearest2x(x), cw, relu, pad_mode)
+    up = int(upsample)
+    ho, wo = h << up, w << up
+    if pad_mode == "reflect" and (ho < 2 or wo < 2):
+        raise ValueError(f"reflection padding needs H, W >= 2, got {ho}x{wo}")
     if x.dtype not in (torch.bfloat16, torch.float32) or cw.packed.dtype != x.dtype:
         raise TypeError("the CUDA conv kernel takes bfloat16 or float32 with weights of the "
                         f"same dtype, got {x.dtype} and {cw.packed.dtype}")
@@ -250,19 +285,23 @@ def reflect_conv3x3(
     from ccst_tpu_torch.kernels import _build
 
     lib = _build.library()
-    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         entry = (lib.ccst_reflect_conv3x3_f32 if x.dtype == torch.float32
                  else lib.ccst_reflect_conv3x3_bf16)
         rc = entry(
             x.data_ptr(), cw.packed.data_ptr(), cw.b.data_ptr(), y.data_ptr(),
-            n, h, w, cin, cout, int(relu), int(pad_mode == "reflect"), stream,
+            n, h, w, cin, cout, int(relu), int(pad_mode == "reflect"), up, stream,
         )
     if rc:
         raise RuntimeError(f"reflect_conv3x3 launch failed: CUDA error {rc}")
     reflect_conv3x3.launches += 1
+    if up:
+        reflect_conv3x3.up_launches += 1
+        profiling.count("k3.up_folded")
     return y
 
 
 reflect_conv3x3.launches = 0
+reflect_conv3x3.up_launches = 0  # the launches that fold a nearest-2x upsample

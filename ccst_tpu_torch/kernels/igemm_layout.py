@@ -72,14 +72,17 @@ def pad_index(i: np.ndarray, n: int, reflect: bool) -> np.ndarray:
 
 
 def simulate_conv(x: np.ndarray, packed: np.ndarray, cout: int, reflect: bool,
-                  row_shift: int = 0) -> np.ndarray:
+                  row_shift: int = 0, up: bool = False) -> np.ndarray:
     """The sums the kernel forms, (N, H, W, cout) in ``x.dtype`` (use float64
     or int64): per block the halo gather by index, the planes, each tap as a
     start slot ``dy * 18 + dx`` into them, the rows of a warpgroup's 64 as
     ``start + (r // 8) * 18 + r % 8``, and the weights read from ``packed``
     as the kernel's descriptors walk it. ``row_shift`` is ``ConvGeom``'s:
-    output row h is the conv centred on input row h - row_shift."""
+    output row h is the conv centred on input row h - row_shift. ``up`` is
+    ``ConvGeom::up``: the output is (N, 2H, 2W, cout), and halo position i
+    of an axis of length 2H reads ``x`` at ``pad_index(i, 2H) >> 1``."""
     n_img, h, w, cin = x.shape
+    h, w = h << up, w << up
     tiles, chunks, taps, groups, bn, per_group = packed.shape
     per_chunk = groups * per_group
     out = np.zeros((n_img, h, w, tiles * bn), x.dtype)
@@ -88,8 +91,8 @@ def simulate_conv(x: np.ndarray, packed: np.ndarray, cout: int, reflect: bool,
         for y0 in range(0, h, TILE_H):
             for x0 in range(0, w, TILE_W):
                 p = np.arange(HALO_PX)
-                gy = pad_index(y0 - 1 - row_shift + p // HALO_W, h, reflect)
-                gx = pad_index(x0 - 1 + p % HALO_W, w, reflect)
+                gy = pad_index(y0 - 1 - row_shift + p // HALO_W, h, reflect) >> up
+                gx = pad_index(x0 - 1 + p % HALO_W, w, reflect) >> up
                 acc = np.zeros((2, 64, tiles * bn), x.dtype)
                 for c in range(chunks):
                     planes = np.zeros((groups, PLANE_SLOTS, per_group), x.dtype)

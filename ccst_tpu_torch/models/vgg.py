@@ -8,9 +8,12 @@ along one of two routes, chosen by the caller's ``route`` argument:
 
   - ``"kernel"`` (every pass that needs no gradient): every 3x3 conv
     (reflection pad 1, bias, optional ReLU) runs through ``kernels/conv.py``,
-    the CUDA kernel on the card, its plain version on CPU; the 1x1 ``conv0``
-    (3 -> 3, no pad), the ceil-mode 2x2 max pools and the nearest 2x upsamples
-    are plain torch, as the JAX package leaves them to XLA. Activations are in
+    the CUDA kernel on the card, its plain version on CPU; an ``Upsample``
+    directly before a 3x3 conv is that conv's ``upsample=True`` (on the card
+    the kernel reads its input through the nearest-2x index map and the
+    upsampled tensor never exists; the same bits). The 1x1 ``conv0`` (3 -> 3,
+    no pad), the ceil-mode 2x2 max pools and any other upsample are plain
+    torch, as the JAX package leaves them to XLA. Activations are in
     the compute dtype; convs accumulate in float32 and round once, like
     ``ccst_tpu.models.vgg.conv2d``.
   - ``"autograd"`` (decoder training and the inverter's perceptual loss): a
@@ -36,7 +39,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ccst_tpu_torch.kernels.conv import ConvWeights, prepare_conv, reflect_conv3x3
+from ccst_tpu_torch.kernels.conv import (
+    ConvWeights,
+    prepare_conv,
+    reflect_conv3x3,
+    upsample_nearest2x,
+)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 Prepared = Dict[str, ConvWeights]
@@ -157,12 +165,6 @@ def maxpool_ceil(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
-def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
-    n, h, w, c = x.shape
-    x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
-    return x.reshape(n, h * 2, w * 2, c)
-
-
 def init_params(arch: Sequence, generator: torch.Generator) -> Params:
     """Kaiming-uniform init (torch Conv2d default), float32 on the CPU.
 
@@ -242,25 +244,33 @@ def _conv_autograd(x: torch.Tensor, p, ksize: int, relu: bool) -> torch.Tensor:
 
 def _apply(params, x: torch.Tensor, arch: Sequence, stop_at: str = "",
            taps: Sequence[str] = (), route: str = "kernel"):
-    """Walk ``arch`` from ``x``; returns the output and the named taps."""
+    """Walk ``arch`` from ``x``; returns the output and the named taps. On
+    the kernel route an ``Upsample`` followed by a 3x3 ``Conv`` is one
+    ``reflect_conv3x3(..., upsample=True)``."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     collected = {}
-    for layer in arch:
+    up = False  # the last layer was an Upsample left to the 3x3 conv that follows it
+    for i, layer in enumerate(arch):
         if isinstance(layer, Conv):
             p = params[layer.name]
             if route == "autograd":
                 x = _conv_autograd(x, p, layer.ksize, layer.relu)
             elif layer.ksize == 3:
-                x = reflect_conv3x3(x, p, relu=layer.relu)
+                x = reflect_conv3x3(x, p, relu=layer.relu, upsample=up)
             else:
                 x = conv1x1(x, p)
                 if layer.relu:
                     x = torch.relu(x)
+            up = False
         elif isinstance(layer, Pool):
             x = maxpool_ceil(x)
         elif isinstance(layer, Upsample):
-            x = upsample_nearest2x(x)
+            nxt = arch[i + 1] if i + 1 < len(arch) else None
+            if route == "kernel" and isinstance(nxt, Conv) and nxt.ksize == 3:
+                up = True
+            else:
+                x = upsample_nearest2x(x)
         elif isinstance(layer, Tap):
             if layer.name in taps:
                 collected[layer.name] = x

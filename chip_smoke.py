@@ -47,7 +47,12 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      formed on the device at every shape of the int8 engine (bit for bit);
      W1, WCT's centring pass, bit for bit in bfloat16 and float32 at the
      five levels' shapes of the benchmark's WCT cell, timed beside its plain
-     version with its bound;
+     version with its bound; K3 with the decoder's nearest-2x upsample folded
+     into its gather (``upsample=True``) bit for bit against
+     ``upsample_nearest2x`` then K3, at the source planes of the four
+     upsampling decoder convs in the benchmark's cells (batch 32, 512 px),
+     ragged planes in both pad modes and the float32 route, each timed beside
+     that unfused pair;
   4. the main paths through the CLI entry point, in this process, each with
      every launch count zeroed before it and read after it: ``style-bank``
      for four synthetic PACS domains, ``stylize --target photo --mode
@@ -62,7 +67,9 @@ without one. It imports nothing of JAX. Phases, each of which fails the run:
      rewrites exactly those; ``style-bank --model wct`` and ``stylize --model
      wct --mode overall`` (WCT's five-level cascade, its centring kernel
      counted beside K3); outputs must exist, spread and be finite, and
-     every kernel's launch count must be exactly what the path implies; then
+     every kernel's launch count must be exactly what the path implies (also
+     the K3 launches that fold an upsample: 3 a style through the ``ref``
+     decoder, 10 through WCT's); then
      ``reorganize``, ``gen-lists``, ``filter-blank`` and ``split-data`` on the
      same tree, each exiting 0 and writing its lists;
   5. on one 512 px batch: the ``ref`` path against the same path composed
@@ -293,6 +300,20 @@ K3_WCT_SHAPES = [
     ("conv5_1, dconv5_1 (WCT)", (32, 32, 32, 512, 512)),
 ]
 K3_MAIN = (4, 512, 512, 64, 64)
+# K3 with the decoder's nearest-2x upsample folded into its gather
+# (``upsample=True``), at the source planes of the benchmark's cells (batch
+# 32, 512 px): (layer, (N, H, W, Cin, Cout) of the source, dtype, pad); then
+# ragged planes in both pad modes and the float32 stage route
+K3_UP_SHAPES = [
+    ("dconv4_4 (WCT)", (32, 32, 32, 512, 512), "bfloat16", "reflect"),
+    ("dconv3_4", (32, 64, 64, 256, 256), "bfloat16", "reflect"),
+    ("dconv2_2", (32, 128, 128, 128, 128), "bfloat16", "reflect"),
+    ("dconv1_2", (32, 256, 256, 64, 64), "bfloat16", "reflect"),
+    ("ragged", (2, 37, 53, 64, 128), "bfloat16", "reflect"),
+    ("ragged edge, Cout = 3", (3, 17, 9, 80, 3), "bfloat16", "edge"),
+    ("dconv3_4 float32", (4, 64, 64, 256, 256), "float32", "reflect"),
+    ("ragged float32", (2, 37, 53, 68, 130), "float32", "reflect"),
+]
 # W1, WCT's centring pass, at the (B, P, C) of each level of the benchmark's
 # WCT cell (batch 32 at 512 px)
 W1_SHAPES = [("relu5_1", (32, 1024, 512)), ("relu4_1", (32, 4096, 512)),
@@ -529,6 +550,58 @@ def k3_bf16_rows(torch, dev, gen, layer, shape):
         else:
             print(f"K3 conv {layer} {(n, h, w, cin, cout)} relu=False: max {mx:.3e} mean {mean:.3e}")
         rows.append(row)
+    return rows
+
+
+def check_k3_upsample(torch, dev):
+    """Phase 3, K3 with the upsample folded in: at each of ``K3_UP_SHAPES``,
+    ``reflect_conv3x3(x, upsample=True)`` bit for bit against
+    ``upsample_nearest2x`` then K3 (the same kernel on the upsampled plane),
+    with and without ReLU; each ReLU row timed beside that pair and K3 alone
+    on the upsampled plane, with its bound (operations, or the source, the
+    weights and the output moved once). Returns the rows."""
+    from ccst_tpu_torch.kernels.conv import prepare_conv, reflect_conv3x3, upsample_nearest2x
+
+    gen = torch.Generator().manual_seed(21)
+    rows = []
+    for layer, (n, h, w, cin, cout), dtype_name, pad in K3_UP_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn((n, h, w, cin), generator=gen).to(dev, dtype)
+        spread = (1.0 / (9 * cin)) ** 0.5
+        cw = prepare_conv((torch.rand((3, 3, cin, cout), generator=gen) * 2 - 1) * spread,
+                          (torch.rand((cout,), generator=gen) * 2 - 1) * spread, dtype, dev)
+        out_shape = (n, 2 * h, 2 * w, cin, cout)
+        size = 2 if dtype == torch.bfloat16 else 4
+        peak = BF16_PEAK_TFLOPS if dtype == torch.bfloat16 else F32_PEAK_TFLOPS
+        flop = 2 * n * 4 * h * w * 9 * cin * cout
+        nbytes = (n * h * w * cin + n * 4 * h * w * cout + 9 * cin * cout) * size + 8 * cout
+        bd = bound(flop, peak, nbytes)
+        for relu in (True, False):
+            before = reflect_conv3x3.launches, reflect_conv3x3.up_launches
+            got = reflect_conv3x3(x, cw, relu, pad, upsample=True)
+            torch.cuda.synchronize()
+            if (reflect_conv3x3.launches - before[0], reflect_conv3x3.up_launches - before[1]) != (1, 1):
+                fail(f"K3 up {layer}: not one folded launch")
+            xu = upsample_nearest2x(x)
+            want = reflect_conv3x3(xu, cw, relu, pad)
+            name = f"K3 up {layer} {(n, h, w, cin, cout)} {dtype_name} {pad} relu={relu}"
+            check_equal(torch, name, got, want)
+            row = dict(layer=layer, shape=[n, h, w, cin, cout], upsample=True, relu=relu,
+                       dtype=str(dtype), pad=pad, max_abs_err=0.0)
+            if relu:
+                ms = time_ms(torch, lambda: reflect_conv3x3(x, cw, True, pad, upsample=True))
+                pair = time_ms(torch, lambda: reflect_conv3x3(upsample_nearest2x(x), cw, True, pad))
+                up_ms = time_ms(torch, lambda: upsample_nearest2x(x))
+                k3 = time_ms(torch, lambda: reflect_conv3x3(xu, cw, True, pad))
+                row.update(ms=ms, pair_ms=pair, upsample_ms=up_ms, k3_upsampled_ms=k3, **bd)
+                print(f"K3 conv up {layer} {(n, h, w, cin, cout)} -> {out_shape[1:3]} {dtype_name} "
+                      f"{pad}: bit-equal to upsample + K3 | folded {ms:.4f} ms "
+                      f"({flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s) bound {bd['bound_ms']:.4f} ms "
+                      f"by {bd['bound_by']} ({100 * bd['bound_ms'] / ms:.1f}% reached); unfused "
+                      f"pair {pair:.4f} ms (upsample {up_ms:.4f} + K3 {k3:.4f}), "
+                      f"{pair - ms:+.4f} ms saved")
+            rows.append(row)
+        del x, xu, got, want
     return rows
 
 
@@ -3252,6 +3325,7 @@ def main() -> int:
             results["K3"].append(row)
     del x, got, want
 
+    results["K3"] += check_k3_upsample(torch, dev)
     check_small_kernels(torch, dev, gen, results, batch)
     results["W1"] += check_wct_centre(torch, dev)
 
@@ -3343,11 +3417,13 @@ def main() -> int:
             "output-size 96": (os.path.join(root, "resized"), "overall"),
         }
         per_overall = {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}
+        # "K3 up": the K3 launches that fold an upsample (reflect_conv3x3.up_launches,
+        # inside "K3"): 3 a style through the ref decoder, none through vgg_fast's
+        per_ref = {**per_overall, "K3 up": 3 * n_styles * n_content_batches}
         steps = (
             ("style-bank", ["style-bank", *common(root)],
              {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
-            ("stylize ref", ["stylize", *common(root), *target, "--mode", "overall"],
-             {"K3": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}),
+            ("stylize ref", ["stylize", *common(root), *target, "--mode", "overall"], per_ref),
             ("calibrate", ["calibrate", *common(root), *target, "--engine", "int8-fused"], {}),
             ("stylize int8-fused", ["stylize", *common(int8_root), *target, "--mode", "overall",
                                     "--engine", "int8-fused"],
@@ -3356,12 +3432,12 @@ def main() -> int:
             ("style-bank float32", ["style-bank", *common(f32_root, "float32", f32_stats)],
              {"K3": 9 * n_bank_batches, "K5": n_bank_batches}),
             ("stylize ref float32", ["stylize", *common(f32_root, "float32", f32_stats), *target,
-                                     "--mode", "overall"], per_overall),
+                                     "--mode", "overall"], per_ref),
             # single mode: per batch and style, the style image's relu4_1
             # statistics (the ref encoder's 9 K3, one K5), then encode, AdaIN, decode
             ("stylize single ref", ["stylize", *common(outs["single ref"][0]), *target,
                                     "--mode", "single"],
-             {"K3": 27 * n_single, "K5": n_single, "K4": n_single}),
+             {"K3": 27 * n_single, "K5": n_single, "K4": n_single, "K3 up": 3 * n_single}),
             ("stylize single int8-fused", ["stylize", *common(outs["single int8-fused"][0]),
                                            *target, "--mode", "single", "--engine", "int8-fused"],
              {"K3": 9 * n_single, "K5": n_single, "K0": 14 * n_single, "K1": n_single,
@@ -3377,28 +3453,32 @@ def main() -> int:
                               "--engine", "int8"],
              {"K0": (9 + 9 * n_styles) * n_content_batches, "K4": n_content_batches}),
             ("stylize output-size 96", ["stylize", *common(outs["output-size 96"][0]), *target,
-                                        "--mode", "overall", "--output-size", "96"], per_overall),
+                                        "--mode", "overall", "--output-size", "96"], per_ref),
             # the other content domains, which reorganize --target photo needs
             *((f"stylize ref --target {d}", ["stylize", *common(root), "--target", d, "--mode",
-                                             "overall"], per_overall)
+                                             "overall"], per_ref)
               for d in DOMAINS if d != "photo"),
             # WCT: the encoder on to relu5_1 (13 K3) a bank batch; a content
             # batch encoded to relu5_1 once, then a style decodes relu5_1 (13)
             # and encodes and decodes relu4_1 (9 + 9), relu3_1 (5 + 5), relu2_1
             # (3 + 3) and relu1_1 (1 + 1), one centring a level and style
-            # besides relu5_1's one (the last flags win over common's)
+            # besides relu5_1's one (the last flags win over common's); the
+            # decoders fold 4 + 3 + 2 + 1 upsamples a style
             ("style-bank wct", ["style-bank", *common(wct_root), *wct_args],
              {"K3": 13 * n_bank_batches}),
             ("stylize wct", ["stylize", *common(wct_root), *wct_args, *target, "--mode",
                              "overall"],
              {"K3": (13 + 49 * n_styles) * n_content_batches,
-              "W1": (1 + 4 * n_styles) * n_content_batches}),
+              "W1": (1 + 4 * n_styles) * n_content_batches,
+              "K3 up": 10 * n_styles * n_content_batches}),
         )
 
         def run_step(step, argv, expect):
+            up_expect = expect.get("K3 up", 0)
             expect = {k: expect.get(k, 0) for k in counters}
             for fn in counters.values():
                 fn.launches = 0
+            reflect_conv3x3.up_launches = 0
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 rc = cli.main(argv)
@@ -3409,7 +3489,10 @@ def main() -> int:
                 fail(f"{step} returned {rc}")
             if got != expect:
                 fail(f"{step}: kernel launches {got}, expected {expect}")
-            print(f"{step}: kernel launches {got} (as expected)")
+            if reflect_conv3x3.up_launches != up_expect:
+                fail(f"{step}: {reflect_conv3x3.up_launches} K3 launches folded an upsample, "
+                     f"expected {up_expect}")
+            print(f"{step}: kernel launches {got}, K3 up {up_expect} (as expected)")
             if "int8-fused" in step and "loading int8 calibration" not in out.getvalue():
                 fail(f"{step} did not load the calibration that calibrate wrote")
             for k in counters:
@@ -3447,7 +3530,7 @@ def main() -> int:
         for p in gone:
             os.remove(p)
         run_step("stylize --skip-existing, one output a style deleted", rerun,
-                 {"K3": 18 * n_styles, "K4": n_styles})
+                 {"K3": 18 * n_styles, "K4": n_styles, "K3 up": 3 * n_styles})
         after = snapshot(root)
         rewritten = sorted(p for p in after if after[p] != before.get(p))
         if rewritten != sorted(gone) or set(after) != set(before):
@@ -3584,11 +3667,13 @@ def main() -> int:
     engine32 = StylizeEngine(enc, dec, dtype=torch.float32, device=dev)
     for fn in counters.values():
         fn.launches = 0
+    reflect_conv3x3.up_launches = 0
     got32 = engine32.stylize_multi(images_u8, s_means, s_stds, 1.0)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
-    if counts != {"K3": 9 + 9 * n_styles, "K4": 1}:
-        fail(f"float32 ref stylize_multi: launches {counts}, expected K3 {9 + 9 * n_styles}, K4 1")
+    if counts != {"K3": 9 + 9 * n_styles, "K4": 1} or reflect_conv3x3.up_launches != 3 * n_styles:
+        fail(f"float32 ref stylize_multi: launches {counts}, {reflect_conv3x3.up_launches} folded; "
+             f"expected K3 {9 + 9 * n_styles} ({3 * n_styles} folded), K4 1")
     with torch.no_grad():
         feat32 = plain_apply(engine32.enc, images_u8.float() / 255.0, vgg.ENCODER_ARCH,
                              stop_at="relu4_1")
@@ -3900,7 +3985,8 @@ def main() -> int:
                                          "graph_ms", "plain_ms",
                                          "bound_ms", "bound_by", "cudnn_bf16_ms", "cudnn_f32_ms",
                                          "library_ms", "cublas_bf16_out_ms", "single_launches_ms",
-                                         "call_ms", "empty_launch_ms", "replaces_chain_ms", "k0_ms")
+                                         "call_ms", "empty_launch_ms", "replaces_chain_ms", "k0_ms",
+                                         "upsample", "pair_ms", "upsample_ms", "k3_upsampled_ms")
              if key in r}
             for r in rows if "ms" in r
         ]
